@@ -1,0 +1,88 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one ``.cu`` file in this directory with a plain C interface.
+At first use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+``_build/`` (listed in .gitignore) under a name that carries a hash of its
+source, and loaded with ctypes. Nothing here falls back: a missing ``nvcc``
+or a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# argtypes of each kernel's C entry points (pointers and the stream as
+# c_void_p, so ctypes never truncates them to 32 bits)
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+SIGNATURES = {
+    "level_histogram": {
+        "level_histogram_f32": [_P, _P, _P, _I, _I64, _I, _P, _P],
+        "level_histogram_bf16": [_P, _P, _P, _I, _I64, _I, _P, _P],
+    },
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+build_logs: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    path = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                           "machine that has the card (set CUDA_HOME)")
+    return path
+
+
+def _target(name: str) -> tuple[str, str]:
+    src = os.path.join(_HERE, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
+                              ).hexdigest()[:12]
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build(name: str) -> float:
+    """Compile kernel `name` unless its library is there; returns the
+    seconds taken and raises with the compiler's output if nvcc fails."""
+    src, lib = _target(name)
+    if os.path.exists(lib):
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    build_logs[name] = proc.stdout
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
+                           f"{proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, lib)
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    _, path = _target(name)
+    if not os.path.exists(path):
+        build(name)
+    lib = ctypes.CDLL(path)
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    _loaded[name] = lib
+    return lib

@@ -1,0 +1,233 @@
+"""The port's hash grid (ops/hashgrid.py) and level histogram (ops/hist.py)
+against the JAX package, on the CPU.
+
+Tolerances, stated per test:
+- level_histogram_reference vs hist_pallas.level_histogram (interpret mode):
+  rtol 1e-5, atol 1e-6 plus 1e-6 of the slot's sum of |values| - float32
+  sums in another order (one slot may take every update of its level);
+- corner indices: bit-equal;
+- encode with float32 payloads: rtol 2e-5, atol 1e-6, as the JAX package's
+  own vjp-mode goldens (tests/test_hashgrid.py:164); the second-order
+  embedding gradient at atol 1e-6 of its largest magnitude;
+- encode with bfloat16 payloads: embedding gradients within one bf16 ulp of
+  each update summed into a slot, on each side (2^-7 of the histogram of
+  |cotangent|) - each side rounds its own float32 cotangent once, an error
+  of at most 2^-8 of it (bf16 keeps 8 significant bits).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from morpheus_tpu.ops import hashgrid as jhash  # noqa: E402
+from morpheus_tpu.ops import hist_pallas  # noqa: E402
+from morpheus_tpu_torch.ops import hashgrid, hist  # noqa: E402
+
+torch.set_num_threads(1)
+
+# tests/test_hashgrid.py:148-150 (all hashed), and a grid with a packed
+# dense prefix (8^3 <= 1024 rows) followed by a hashed tail
+GRIDS = {
+    "jax_golden": dict(input_dim=3, num_levels=4, level_dim=2,
+                       base_resolution=4, log2_hashmap_size=6,
+                       desired_resolution=16),
+    "packed_and_hashed": dict(input_dim=3, num_levels=4, level_dim=2,
+                              base_resolution=8, log2_hashmap_size=10,
+                              desired_resolution=32),
+}
+
+
+@pytest.mark.parametrize("C", [2, 4, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stream", ["random", "one_slot"])
+def test_level_histogram_matches_pallas(C, dtype, stream):
+    rng = np.random.default_rng(C)
+    L, Np, t_pad = 3, 1500, 256
+    if stream == "one_slot":
+        idx = np.full((L, Np), 7, np.int32)
+    else:
+        idx = rng.integers(0, t_pad, (L, Np)).astype(np.int32)
+    vals = rng.standard_normal((L * Np, C)).astype(np.float32)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = hist_pallas.level_histogram(
+        jnp.asarray(idx), tuple(jnp.asarray(vals[:, c].reshape(L, Np), jd)
+                                for c in range(C)), t_pad, interpret=True)
+    tv = torch.as_tensor(vals).to(getattr(torch, dtype))
+    before = hist.level_histogram.launches
+    got = hist.level_histogram(torch.as_tensor(idx), tv,
+                               [l * t_pad for l in range(L)], L * t_pad)
+    # a CPU tensor takes the plain version: no kernel launch is counted
+    assert hist.level_histogram.launches == before
+    habs = hist.level_histogram_reference(
+        torch.as_tensor(idx), tv.abs(), [l * t_pad for l in range(L)],
+        L * t_pad)
+    to_jax = lambda t: t.reshape(L, t_pad, C).permute(2, 0, 1).numpy()
+    err = np.abs(to_jax(got) - np.asarray(want))
+    assert (err <= 1e-5 * np.abs(np.asarray(want)) + 1e-6
+            + 1e-6 * to_jax(habs)).all(), err.max()
+
+
+def test_level_histogram_checks_its_inputs():
+    idx = torch.zeros((2, 5), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        hist.level_histogram(idx, torch.zeros((9, 2)), [0, 8], 16)
+    with pytest.raises(ValueError):
+        hist.level_histogram(idx.long(), torch.zeros((10, 2)), [0, 8], 16)
+    with pytest.raises(ValueError):
+        hist.level_histogram(idx.to("meta"), torch.zeros((10, 2),
+                                                         device="meta"),
+                             [0, 8], 16)
+
+
+def test_spec_matches_jax_at_bench_width():
+    kw = dict(input_dim=3, num_levels=16, level_dim=2, base_resolution=16,
+              log2_hashmap_size=15, desired_resolution=128)
+    assert hashgrid.HashGridSpec(**kw).offsets == jhash.HashGridSpec(
+        **kw).offsets
+    assert hashgrid.HashGridSpec(**kw).resolutions == jhash.HashGridSpec(
+        **kw).resolutions
+
+
+def test_corner_index_bit_equal_on_hashed_levels():
+    spec = jhash.HashGridSpec(num_levels=16, base_resolution=16,
+                              log2_hashmap_size=15, desired_resolution=4096)
+    tspec = hashgrid.HashGridSpec(num_levels=16, base_resolution=16,
+                                  log2_hashmap_size=15,
+                                  desired_resolution=4096)
+    rng = np.random.default_rng(0)
+    # coordinates up to 4095: coord * 3674653429 overflows 32 bits
+    pos = rng.integers(0, 4096, (5000, 3)).astype(np.uint32)
+    for res in (33, 129, 4096):
+        want = jhash._corner_index(spec, jnp.asarray(pos), res, 32768)
+        got = hashgrid.corner_index(tspec, torch.as_tensor(
+            pos.astype(np.int64)), res, 32768)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _emb_and_points(kw, seed=3, n=257):
+    key = jax.random.PRNGKey(seed)
+    emb = np.asarray(jhash.init_embeddings(key, jhash.HashGridSpec(**kw))
+                     * 1e4)
+    x = np.asarray(jax.random.uniform(key, (n, 3), minval=-0.9, maxval=0.9))
+    # exact lattice borders, where clamped +1 corners carry zero weight
+    x = np.concatenate([x, [[1.0, 1.0, 1.0], [-1.0, -1.0, -1.0],
+                            [1.0, -1.0, 0.0]]]).astype(np.float32)
+    return np.array(emb), x
+
+
+def _abs_hist_grad(monkeypatch, fn, e):
+    orig = hashgrid.level_histogram
+    with monkeypatch.context() as m:
+        m.setattr(hashgrid, "level_histogram",
+                  lambda idx, vals, starts, n: orig(idx, vals.abs(), starts, n))
+        return torch.autograd.grad(fn(), e)[0].numpy()
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+@pytest.mark.parametrize("payload", ["float32", "bfloat16"])
+def test_encode_matches_jax(grid, payload, monkeypatch):
+    kw = GRIDS[grid]
+    jspec = jhash.HashGridSpec(**kw, grad_payload=payload)
+    tspec = hashgrid.HashGridSpec(**kw, grad_payload=payload)
+    emb, x = _emb_and_points(kw)
+
+    def jf(e, xx):
+        return jnp.sum(jnp.sin(jhash.encode(xx, e, jspec, bound=1.0)) ** 2)
+
+    def jg2(e):
+        n = jax.grad(lambda xx: jnp.sum(jhash.encode(xx, e, jspec,
+                                                     bound=1.0)))(x)
+        return jnp.sum(n ** 2)
+
+    j_out = jhash.encode(jnp.asarray(x), jnp.asarray(emb), jspec, bound=1.0)
+    j_ge, j_gx = jax.grad(jf, argnums=(0, 1))(jnp.asarray(emb),
+                                             jnp.asarray(x))
+    j_h = jax.grad(jg2)(jnp.asarray(emb))
+
+    e = torch.tensor(emb, requires_grad=True)
+    xt = torch.tensor(x, requires_grad=True)
+    out = hashgrid.encode(xt, e, tspec, bound=1.0)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out),
+                               rtol=2e-5, atol=1e-6)
+
+    def tf():
+        return (torch.sin(hashgrid.encode(xt, e, tspec, bound=1.0)) ** 2).sum()
+
+    ge, gx = torch.autograd.grad(tf(), (e, xt))
+    np.testing.assert_allclose(gx.numpy(), np.asarray(j_gx), rtol=2e-5,
+                               atol=1e-6)
+
+    def tg2():
+        n = torch.autograd.grad(hashgrid.encode(xt, e, tspec, 1.0).sum(), xt,
+                                create_graph=True)[0]
+        return (n ** 2).sum()
+
+    h = torch.autograd.grad(tg2(), e)[0]
+    if payload == "float32":
+        np.testing.assert_allclose(ge.numpy(), np.asarray(j_ge), rtol=2e-5,
+                                   atol=1e-6)
+        # second order: terms of the largest gradient's size cancel, so
+        # round-off is absolute at that scale (in float64 the JAX and the
+        # port results both sit ~1.5e-6 of max|h| from the exact value)
+        np.testing.assert_allclose(h.numpy(), np.asarray(j_h), rtol=2e-5,
+                                   atol=1e-6 * np.abs(np.asarray(j_h)).max())
+    else:
+        for got, want, fn in ((ge, j_ge, tf), (h, j_h, tg2)):
+            bound = 2.0 ** -7 * _abs_hist_grad(monkeypatch, fn, e) + 1e-6
+            err = np.abs(got.numpy() - np.asarray(want))
+            assert (err <= bound + 2e-5 * np.abs(np.asarray(want))).all()
+
+
+def test_hist_backward_is_the_gather():
+    """Differentiating the embedding gradient (HistRows) goes through
+    GatherRows: d/dx of <grad_e, u> matches JAX's transpose of the
+    transpose, on the packed prefix and the hashed tail."""
+    kw = GRIDS["packed_and_hashed"]
+    jspec, tspec = jhash.HashGridSpec(**kw), hashgrid.HashGridSpec(**kw)
+    emb, x = _emb_and_points(kw, seed=5, n=61)
+    u = np.random.default_rng(1).standard_normal(emb.shape).astype(np.float32)
+
+    def jf(e, xx):
+        return jnp.sum(jnp.sin(jhash.encode(xx, e, jspec, bound=1.0)))
+
+    want = jax.grad(lambda xx: jnp.sum(jax.grad(jf)(jnp.asarray(emb), xx)
+                                       * u))(jnp.asarray(x))
+    e = torch.tensor(emb, requires_grad=True)
+    xt = torch.tensor(x, requires_grad=True)
+    ge = torch.autograd.grad(torch.sin(hashgrid.encode(xt, e, tspec, 1.0))
+                             .sum(), e, create_graph=True)[0]
+    got = torch.autograd.grad((ge * torch.as_tensor(u)).sum(), xt)[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=1e-5)
+
+
+def test_max_level_and_static_truncation_match_jax():
+    kw = dict(input_dim=3, num_levels=8, level_dim=2, base_resolution=4,
+              log2_hashmap_size=8, desired_resolution=64)
+    jspec, tspec = jhash.HashGridSpec(**kw), hashgrid.HashGridSpec(**kw)
+    emb, x = _emb_and_points(kw, seed=2, n=97)
+    for ml, al in ((0.3, None), (0.5, 4), (0.875, 8), (0.875, None)):
+        want = jhash.encode(jnp.asarray(x), jnp.asarray(emb), jspec, 1.0,
+                            max_level=jnp.float32(ml), active_levels=al)
+        got = hashgrid.encode(torch.tensor(x), torch.tensor(emb), tspec, 1.0,
+                              max_level=ml, active_levels=al)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=1e-6)
+
+
+def test_nearest_interpolation_matches_jax():
+    kw = GRIDS["packed_and_hashed"]
+    jspec = dataclasses.replace(jhash.HashGridSpec(**kw),
+                                interpolation="nearest")
+    tspec = dataclasses.replace(hashgrid.HashGridSpec(**kw),
+                                interpolation="nearest")
+    emb, x = _emb_and_points(kw, seed=4)
+    want = jhash.encode(jnp.asarray(x), jnp.asarray(emb), jspec, 1.0)
+    got = hashgrid.encode(torch.as_tensor(x), torch.as_tensor(emb), tspec,
+                          1.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)

@@ -1,0 +1,125 @@
+"""Shared pieces of the trainer parity tests (tests/test_torch_trainer.py,
+tests/test_torch_train_steps.py): a tiny synthetic config, a JAX/port
+trainer pair with the same parameters, and the replay of the JAX step's key
+tree into the port's named draw sites."""
+import numpy as np
+import torch
+import jax
+import jax.numpy as jnp
+
+from morpheus_tpu.config import merge_defaults as jax_merge_defaults
+from morpheus_tpu.data import dataset as jax_dataset
+from morpheus_tpu.data.synthetic import make_synthetic_scene as jax_scene
+from morpheus_tpu.train import trainer as jax_trainer
+from morpheus_tpu_torch import convert
+from morpheus_tpu_torch.config import merge_defaults
+from morpheus_tpu_torch.data.dataset import load_synthetic
+from morpheus_tpu_torch.train.trainer import Trainer
+
+TINY = {
+    "data": {"data_dir": "<synthetic>", "synthetic_frames": 4,
+             "synthetic_res": 32},
+    "exp": {"seed": 3},
+    "train": {"n_epochs": 8, "n_iters": 1, "real_freq": 3, "virtual_freq": 0,
+              "real_ray_num": 64, "warm_up_end": 4},
+    "model": {"bg_radius": 0.0, "grid_num_levels": 4,
+              "grid_log2_hashmap_size": 10, "grid_base_resolution": 8,
+              "grid_desired_resolution": 32},
+    "tpu": {"max_samples_per_ray": 16, "march_steps": 64,
+            "occ_resolution": 16, "sample_budget": 8, "band_budget": 2,
+            "smooth_budget": 2, "occ_warmup_steps": 2, "occ_update_every": 2,
+            "chain_steps": False, "donate_state": False},
+}
+
+
+def config_pair(payload):
+    tiny = {k: dict(v) for k, v in TINY.items()}
+    tiny["tpu"]["grad_payload"] = payload
+    return jax_merge_defaults(tiny), merge_defaults(tiny)
+
+
+class ReplayDraws:
+    """A draw source that hands out pre-drawn arrays by name."""
+
+    def __init__(self, arrays: dict):
+        self.arrays = arrays
+
+    def _get(self, name, shape):
+        a = np.asarray(self.arrays[name])
+        assert a.shape == tuple(shape), (name, a.shape, shape)
+        return torch.as_tensor(np.array(a))
+
+    def uniform(self, name, shape):
+        return self._get(name, shape).float()
+
+    def normal(self, name, shape):
+        return self._get(name, shape).float()
+
+    def randint(self, name, shape, low, high):
+        return self._get(name, shape).long()
+
+
+def render_draws(k_r, cfg, N):
+    """The draws of renderer.render_rays under key k_r (renderer.py:154,
+    occupancy.py:179, renderer.py:125,211,393-400)."""
+    tpu = cfg["tpu"]
+    B = tpu["sample_budget"] * N
+    Bs, Bb = tpu["smooth_budget"] * N, tpu["band_budget"] * N
+    k_march, k_light, k_perturb, k_smooth = jax.random.split(k_r, 4)
+    k1, k2 = jax.random.split(k_smooth)
+    return {
+        "march": jax.random.uniform(k_march, (N, 1)),
+        "light": jax.random.normal(k_light, (3,)),
+        "smooth_sel": jax.random.uniform(jax.random.fold_in(k_perturb, 7),
+                                         (B,)),
+        "perturb": jax.random.normal(k_perturb, (Bs, 3)),
+        "band_sel": jax.random.uniform(k1, (B,)),
+        "band_phase": jax.random.uniform(k2, (Bb, 1)),
+    }
+
+
+def step_draws(key, cfg, num_frames, n_pix, step):
+    """The draws of Trainer._real_step_body under step key `key`
+    (trainer.py:403-405,213-227, occupancy.py:57-64,104-115,
+    dataset.py:155-158)."""
+    tpu, N = cfg["tpu"], cfg["train"]["real_ray_num"]
+    k_occ, k_loss, k_t = jax.random.split(key, 3)
+    out = {"t_occ": jax.random.uniform(k_t)}
+    k_jit, k_sel = jax.random.split(k_occ)
+    n_cells = tpu["occ_resolution"] ** 3
+    if step < tpu["occ_warmup_steps"]:
+        out["occ_jitter"] = jax.random.uniform(k_jit, (n_cells, 3))
+        out["occ_sel"] = jax.random.randint(k_sel, (int(n_cells * 0.25),), 0,
+                                            n_cells)
+    else:
+        n = max(1, int(n_cells * tpu["occ_sample_fraction"]))
+        out["occ_jitter"] = jax.random.uniform(k_jit, (n, 3))
+    k_s, k_bg, k_r = jax.random.split(k_loss, 3)
+    k_f, k_p = jax.random.split(k_s)
+    out["frame"] = jax.random.randint(k_f, (), 0, num_frames)
+    out["pix"] = jax.random.randint(k_p, (N,), 0, n_pix)
+    out["bg"] = jax.random.uniform(k_bg, (N, 3))
+    out.update(render_draws(k_r, cfg, N))
+    return out
+
+
+def make_pair(payload):
+    jcfg, tcfg = config_pair(payload)
+    scene = jax_scene(num_frames=4, H=32, W=32)
+    jtr = jax_trainer.Trainer(jcfg, jax_dataset.DeformDataset(jcfg, scene))
+    ttr = Trainer(tcfg, load_synthetic(tcfg), device="cpu")
+    # move off the geometric init, whose sdf reads only xyz through a ReLU
+    # MLP: its normals are piecewise constant, so the perturbed-normal L1
+    # term would compare equal normals and differentiate round-off signs
+    params = dict(jtr.state.params)
+    rng = np.random.default_rng(0)
+    params["sdf_grid"] = params["sdf_grid"] * 100.0
+    params["color_grid"] = params["color_grid"] * 100.0
+    w0 = params["sdf_net"]["w"][0]
+    params["sdf_net"] = {"w": [w0 + 0.05 * rng.standard_normal(
+        w0.shape).astype(np.float32)] + list(params["sdf_net"]["w"][1:]),
+        "b": params["sdf_net"]["b"]}
+    params = jax.tree.map(jnp.asarray, params)
+    jtr.state = jtr.state._replace(params=params)
+    ttr.load_params(convert.params_from_jax(jax.tree.map(np.asarray, params)))
+    return jcfg, jtr, ttr
