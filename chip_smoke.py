@@ -5,11 +5,15 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
-  2. build every hand-written kernel from the sources in this checkout;
+  2. build every hand-written kernel from the sources in this checkout, one
+     nvcc per source, all started together;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the real-view training step gives it, and time kernel, plain
-     version and one PyTorch library call computing the same function;
-  4. double-backward check of the GatherRows / HistRows autograd pair on the
+     shapes the real-view training step gives it under its vjp_mode, and time
+     kernel, plain version and one PyTorch library call computing the same
+     function (`hist`, `segsum`, `gather` lines; the sort that precedes the
+     segment sum has its own `sort` line);
+  4. double-backward check of the GatherRows / AccumulateRows autograd pair
+     under each kernel route (hist_rows, mxu_rows, sort_pallas_rows) on the
      card against the same computation on the CPU;
   5. the main path: Trainer(configs/synthetic_bench.yaml) on the card at full
      width, one epoch from step 0 (the full 128^3 warmup occupancy update)
@@ -17,9 +21,13 @@ Phases, in order; any failure exits non-zero:
      updates at 256 and 272), with every kernel's launch count read;
   6. where a steady step's time goes: 5 steps that refresh no occupancy,
      traced with torch.profiler (device kernels per step, device busy time,
-     the card's idle share, the level_histogram kernel's share);
-  7. the main path at a tiny size on the card against the same run on the
-     CPU (same parameters, same random draws).
+     the card's idle share, each kernel's and the sorts' device time);
+  7. phases 5 and 6 again under tpu.vjp_mode mxu_rows, then
+     sort_pallas_rows: one epoch and 10 timed steps from step 256 each (the
+     occupancy refreshes run through the mode too), then a 5-step trace;
+  8. the main path at a tiny size on the card against the same run on the
+     CPU (same parameters, same random draws), under each of the three
+     modes.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -65,38 +73,77 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+# the kernels of each vjp_mode's step, and the wrappers that count launches
+PATH_KERNELS = {"hist_rows": ("level_histogram",),
+                "mxu_rows": ("level_gather", "level_histogram"),
+                "sort_pallas_rows": ("segment_sum_sorted",)}
+
+
+def wrappers() -> dict:
+    from morpheus_tpu_torch.ops import gather, hist, segsum
+    return {"level_histogram": hist.level_histogram,
+            "level_gather": gather.level_gather,
+            "segment_sum_sorted": segsum.segment_sum_sorted}
+
+
+def reset_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in wrappers().items()}
+
+
+def bench_grid():
+    """configs/synthetic_bench.yaml's hash grid: (offsets, level sizes,
+    packed prefix levels)."""
+    from morpheus_tpu_torch.ops.hashgrid import HashGridSpec
+    grid = HashGridSpec(num_levels=16, level_dim=2, base_resolution=16,
+                        log2_hashmap_size=15, desired_resolution=128)
+    offs = grid.offsets
+    sizes = [offs[l + 1] - offs[l] for l in range(16)]
+    # the dense prefix that hist_rows packs: levels whose lattice fits
+    k_pack = sum(1 for r, n in zip(grid.resolutions, sizes) if r ** 3 <= n)
+    return offs, sizes, k_pack
+
+
+def level_stream(device, g, sizes, Np):
+    """Random per-level local indices (L, Np) int32, level l in [0, size)."""
+    import torch
+    return torch.stack([torch.randint(0, s, (Np,), generator=g, device=device,
+                                      dtype=torch.int32) for s in sizes])
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time for nbytes over HBM and ops f32 operations."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return {"bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
 def hist_cases(device):
     """The level_histogram calls of one real step at configs/
     synthetic_bench.yaml: the hashed tail (11 levels of 32768 rows, Np =
     8 corners x 40,960 sites: 32,768 samples + 8,192 smoothness sites) with
-    the fused sdf+color table (C=4) and the sdf-only table (C=2); the packed
-    dense prefix (5 levels, C = 8 corners x 4); and one stream whose every
-    update lands on one slot of its level."""
+    the fused sdf+color table (C=4) and the sdf-only table (C=2); all 16
+    levels (mxu_rows, C=4); the packed dense prefix (5 levels, C = 8
+    corners x 4); and one stream whose every update lands on one slot of its
+    level."""
     import torch
-    from morpheus_tpu_torch.ops.hashgrid import HashGridSpec
-    grid = HashGridSpec(num_levels=16, level_dim=2, base_resolution=16,
-                        log2_hashmap_size=15, desired_resolution=128)
-    offs, res = grid.offsets, grid.resolutions
-    k_pack = sum(1 for l in range(16) if res[l] ** 3 <= offs[l + 1] - offs[l])
+    offs, sizes, k_pack = bench_grid()
     g = torch.Generator(device=device)
     g.manual_seed(0)
     P = 40960
     cases = []
-    for name, starts, sizes, n_rows, C, Np in (
-            ("hashed_c4", offs[k_pack:16], [offs[l + 1] - offs[l] for l in
-                                            range(k_pack, 16)],
-             offs[16], 4, 8 * P),
-            ("hashed_c2", offs[k_pack:16], [offs[l + 1] - offs[l] for l in
-                                            range(k_pack, 16)],
-             offs[16], 2, 8 * P),
-            ("packed_c32", [offs[l] for l in range(k_pack)],
-             [offs[l + 1] - offs[l] for l in range(k_pack)], offs[k_pack],
-             32, P)):
-        idx = torch.stack([torch.randint(0, s, (Np,), generator=g,
-                                         device=device, dtype=torch.int32)
-                           for s in sizes])
-        vals = torch.randn((len(sizes) * Np, C), generator=g, device=device)
-        cases.append((name, idx, vals, list(starts), n_rows))
+    for name, lo, hi, C, Np in (("hashed_c4", k_pack, 16, 4, 8 * P),
+                                ("hashed_c2", k_pack, 16, 2, 8 * P),
+                                # mxu_rows' backward: all 16 levels
+                                ("all16_c4", 0, 16, 4, 8 * P),
+                                ("packed_c32", 0, k_pack, 32, P)):
+        idx = level_stream(device, g, sizes[lo:hi], Np)
+        vals = torch.randn(((hi - lo) * Np, C), generator=g, device=device)
+        cases.append((name, idx, vals, list(offs[lo:hi]), offs[hi]))
     L = 11
     cases.append(("one_slot", torch.zeros((L, 8 * P), dtype=torch.int32,
                                           device=device),
@@ -142,11 +189,8 @@ def check_hist(device, timed: bool):
                 row["plain_ms"] = time_ms(lambda: hist.level_histogram_reference(
                     idx, vals, starts, n_rows))
                 row["library_ms"] = time_ms(lambda: lib.index_add_(0, glob, v32))
-                nbytes = N * 4 + N * C * vals.element_size() + n_rows * C * 4
-                row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
-                                      N * C / F32_OPS_PER_S) * 1e3
-                row["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
-                                   >= N * C / F32_OPS_PER_S else "operations")
+                row.update(bound(N * 4 + N * C * vals.element_size()
+                                 + n_rows * C * 4, N * C))
             rows_out.append(row)
             log("hist", json.dumps(row))
     # an empty stream launches nothing and is not counted
@@ -159,91 +203,242 @@ def check_hist(device, timed: bool):
     return rows_out, worst
 
 
-def check_double_backward(device):
-    """Phase 4: gradient and grad-of-grad through GatherRows / HistRows on
-    `device` against the CPU, both payload types (rtol 1e-5, atol 1e-5)."""
+def segsum_cases(device):
+    """The segment_sum_sorted calls of one sort_pallas_rows step at configs/
+    synthetic_bench.yaml: 16 levels x 8 corners x 40,960 sites = 5,242,880
+    sorted rows of the 419,640-row table, fused sdf+color payloads (C=4) and
+    sdf only (C=2); and one run over the whole stream on the last slot.
+    Also the unsorted rows, for the sort's own time."""
     import torch
-    from morpheus_tpu_torch.ops.hashgrid import take_hist_rows
+    offs, sizes, _ = bench_grid()
+    g = torch.Generator(device=device)
+    g.manual_seed(1)
+    local = level_stream(device, g, sizes, 8 * 40960)
+    st = torch.as_tensor(offs[:16], device=device).reshape(-1, 1)
+    rows = (local.long() + st).reshape(-1).to(torch.int32)
+    keys = torch.sort(rows, stable=True).values
+    N, T = rows.numel(), offs[16]
+    cases = [(f"sorted_c{C}", keys,
+              torch.randn((N, C), generator=g, device=device), T)
+             for C in (4, 2)]
+    cases.append(("one_run", torch.full((N,), T - 1, dtype=torch.int32,
+                                        device=device),
+                  torch.randn((N, 4), generator=g, device=device), T))
+    return cases, rows
 
-    def run(dev, payload):
+
+def check_segsum(device):
+    """Phase 3: segment_sum_sorted against segment_sum_sorted_reference,
+    both payload types. Tolerance: |kernel - plain| <= 1e-5 * (sum of
+    |payload| into the slot) + 1e-6 - float32 sums in another order."""
+    import torch
+    from morpheus_tpu_torch.ops import segsum
+    rows_out, worst = [], 0.0
+    cases, rows = segsum_cases(device)
+    for name, keys, vals32, T in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            vals = vals32.to(dt)
+            got = segsum.segment_sum_sorted(keys, vals, T)
+            ref = segsum.segment_sum_sorted_reference(keys, vals, T)
+            habs = segsum.segment_sum_sorted_reference(keys, vals.abs(), T)
+            err = (got - ref).abs()
+            bad = err > 1e-5 * habs + 1e-6
+            if bool(bad.any()):
+                raise AssertionError(f"segment_sum_sorted {name} {dt}: "
+                                     f"{int(bad.sum())} slots off, max err "
+                                     f"{float(err.max())}")
+            N, C = vals.shape
+            keys64, v32 = keys.long(), vals.float()
+            lib = torch.zeros((T, C), device=device)
+            row = {"case": name, "dtype": str(dt).split(".")[-1], "N": N,
+                   "C": C, "rows": T, "max_abs_err": float(err.max()),
+                   "ms": time_ms(lambda: segsum.segment_sum_sorted(
+                       keys, vals, T)),
+                   "plain_ms": time_ms(
+                       lambda: segsum.segment_sum_sorted_reference(
+                           keys, vals, T)),
+                   "library_ms": time_ms(lambda: lib.index_add_(0, keys64,
+                                                                v32))}
+            row.update(bound(N * 4 + N * C * vals.element_size() + T * C * 4,
+                             N * C))
+            worst = max(worst, row["max_abs_err"])
+            rows_out.append(row)
+            log("segsum", json.dumps(row))
+    # the sort in front of the kernel (ops/hashgrid.py _sorted_segment_sum):
+    # stable sort of the rows, then the bf16 payload permuted by its order
+    payload = torch.randn((rows.numel(), 4), device=device).to(torch.bfloat16)
+
+    def sort_and_permute():
+        order = torch.sort(rows, stable=True).indices
+        return payload.index_select(0, order)
+
+    sort_row = {"N": rows.numel(), "C": 4, "dtype": "bfloat16",
+                "sort_ms": time_ms(lambda: torch.sort(rows, stable=True)),
+                "sort_and_permute_ms": time_ms(sort_and_permute)}
+    log("sort", json.dumps(sort_row))
+    n0 = segsum.segment_sum_sorted.launches
+    empty = segsum.segment_sum_sorted(
+        torch.zeros((0,), dtype=torch.int32, device=device),
+        torch.zeros((0, 4), device=device), 16)
+    if segsum.segment_sum_sorted.launches != n0 or bool(empty.any()):
+        raise AssertionError("segment_sum_sorted counted an empty stream")
+    return rows_out, worst, sort_row
+
+
+def gather_cases(device):
+    """The level_gather calls of one mxu_rows step at configs/
+    synthetic_bench.yaml: 16 levels x Np = 8 corners x 40,960 sites from
+    the fused sdf+color table (C=4) and the sdf table (C=2), one plane (bf16
+    payload, the bench's) and three (f32); the occupancy refresh's
+    'nearest' queries (16 levels x 32,768 points per chunk, C=2, one
+    plane); and every index on one row."""
+    import torch
+    offs, sizes, _ = bench_grid()
+    g = torch.Generator(device=device)
+    g.manual_seed(2)
+    T, Np = offs[16], 8 * 40960
+    local = level_stream(device, g, sizes, Np)
+    emb = {C: torch.randn((T, C), generator=g, device=device) for C in (4, 2)}
+    cases = [(f"levels_c{C}_s{S}", local, emb[C], S)
+             for C in (4, 2) for S in (1, 3)]
+    cases.append(("nearest_c2_s1", level_stream(device, g, sizes, 32768),
+                  emb[2], 1))
+    cases.append(("one_row_c4_s3", torch.zeros_like(local), emb[4], 3))
+    return cases, list(offs[:16])
+
+
+def check_gather(device):
+    """Phase 3: level_gather against level_gather_reference, bit for bit
+    (both round the same f32 values to nearest even and sum the planes in
+    the same order)."""
+    import torch
+    from morpheus_tpu_torch.ops import gather
+    rows_out = []
+    cases, starts = gather_cases(device)
+    for name, local, emb, S in cases:
+        got = gather.level_gather(local, emb, starts, S)
+        ref = gather.level_gather_reference(local, emb, starts, S)
+        if not torch.equal(got, ref):
+            err = (got - ref).abs()
+            raise AssertionError(f"level_gather {name}: {int((err > 0).sum())}"
+                                 f" values differ, max err {float(err.max())}")
+        (L, Np), (T, C) = local.shape, emb.shape
+        N = L * Np
+        glob = (local.long() + torch.as_tensor(starts, device=device)
+                .reshape(-1, 1)).reshape(-1)
+        row = {"case": name, "L": L, "Np": Np, "C": C, "S": S, "rows": T,
+               "max_abs_err": 0.0,
+               "ms": time_ms(lambda: gather.level_gather(local, emb, starts,
+                                                         S)),
+               "plain_ms": time_ms(lambda: gather.level_gather_reference(
+                   local, emb, starts, S)),
+               "library_ms": time_ms(lambda: emb.index_select(0, glob))}
+        # two subtractions and two additions per value under three planes
+        row.update(bound(N * 4 + T * C * 4 + N * C * 4,
+                         N * C * (4 if S == 3 else 0)))
+        rows_out.append(row)
+        log("gather", json.dumps(row))
+    return rows_out
+
+
+def check_double_backward(device):
+    """Phase 4: gradient and grad-of-grad through GatherRows / AccumulateRows
+    on `device` against the CPU, under each kernel route and both payload
+    types (rtol 1e-5, atol 1e-5)."""
+    import torch
+    from morpheus_tpu_torch.ops.hashgrid import take_rows
+
+    def run(dev, mode, payload):
         g = torch.Generator().manual_seed(1)
         L, Np, C, size = 3, 1000, 4, 300
         emb = torch.randn((L * size, C), generator=g).to(dev).requires_grad_()
         idx = torch.randint(0, size, (L, Np), generator=g).to(dev)
         u = torch.randn((L * size, C), generator=g).to(dev)
-        feats = take_hist_rows(emb, idx, [l * size for l in range(L)],
-                               payload)
+        feats = take_rows(emb, idx, [l * size for l in range(L)], mode,
+                          payload)
         loss = torch.sin(feats).sum()
         (ge,) = torch.autograd.grad(loss, emb, create_graph=True)
         (h,) = torch.autograd.grad((ge * u).sum(), emb)
         return ge.detach().cpu(), h.cpu()
 
-    for payload in (None, torch.bfloat16):
-        a, b = run(device, payload), run(torch.device("cpu"), payload)
-        for x, y in zip(a, b):
-            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
-    log("double backward: GatherRows/HistRows on", device, "match the CPU")
+    for mode in PATH_KERNELS:
+        for payload in (None, torch.bfloat16):
+            a = run(device, mode, payload)
+            b = run(torch.device("cpu"), mode, payload)
+            for x, y in zip(a, b):
+                torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+    log("double backward: GatherRows/AccumulateRows under",
+        list(PATH_KERNELS), "on", device, "match the CPU")
 
 
-def main_path(device):
-    """Phase 5: the real-view step at configs/synthetic_bench.yaml width."""
+def main_path(device, ds, mode: str, n_timed: int):
+    """Phases 5 and 7: the real-view step at configs/synthetic_bench.yaml
+    width under tpu.vjp_mode `mode`: one epoch from step 0, then n_timed
+    steps from global step 256, every kernel's launches counted per step."""
     import torch
     from morpheus_tpu_torch.config import load_config
-    from morpheus_tpu_torch.data.dataset import load_synthetic
-    from morpheus_tpu_torch.ops import hist
     from morpheus_tpu_torch.train.trainer import Trainer
 
     cfg = load_config(os.path.join(HERE, "configs", "synthetic_bench.yaml"))
+    cfg["tpu"]["vjp_mode"] = mode
     t0 = time.perf_counter()
-    ds = load_synthetic(cfg)
     trainer = Trainer(cfg, ds, device=device)
-    log(f"main path: {ds.num_frames} frames at {ds.H}x{ds.W}, "
+    log(f"main path {mode}: {ds.num_frames} frames at {ds.H}x{ds.W}, "
         f"{sum(p.numel() for p in trainer.params)} parameters, "
         f"set-up {time.perf_counter() - t0:.1f} s")
     trainer.epoch = cfg["train"]["n_epochs"]          # all 16 levels active
     before = [p.detach().clone() for p in trainer.params]
     torch.cuda.reset_peak_memory_stats(device)
 
-    hist.level_histogram.launches = 0                  # counts of this run
+    reset_counts()                                     # counts of this run
     t0 = time.perf_counter()
     loss0 = trainer.train_one_epoch(n_iters=1)         # steps 0..9
     torch.cuda.synchronize(device)
     epoch_s = time.perf_counter() - t0
-    first_launches = hist.level_histogram.launches
+    first = read_counts()
     n_first = trainer.global_step
     trainer.global_step = 256                          # past occ warmup
-    step_ms, per_step, losses = [], [], []
-    for _ in range(20):
-        n0 = hist.level_histogram.launches
+    step_ms, losses = [], []
+    per_step = {k: [] for k in first}
+    for _ in range(n_timed):
+        n0 = read_counts()
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         loss = trainer.real_step(trainer.epoch)
         torch.cuda.synchronize(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        per_step.append(hist.level_histogram.launches - n0)
+        for k, v in read_counts().items():
+            per_step[k].append(v - n0[k])
         losses.append(float(loss))
-    launches = hist.level_histogram.launches
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated(device)
 
     if not (all(map(lambda v: v == v and abs(v) != float("inf"), losses))
             and loss0 == loss0):
-        raise AssertionError(f"non-finite loss: {loss0}, {losses}")
+        raise AssertionError(f"{mode}: non-finite loss: {loss0}, {losses}")
     moved = sum(int(not torch.equal(a, b)) for a, b in zip(before,
                                                           trainer.params))
     if moved < len(before) - 1:
-        raise AssertionError(f"only {moved}/{len(before)} parameter tensors "
-                             "changed")
-    if first_launches < n_first or min(per_step) < 1:
-        raise AssertionError(f"level_histogram did not run on every step: "
-                             f"{first_launches} launches in {n_first} steps, "
-                             f"per step {per_step}")
+        raise AssertionError(f"{mode}: only {moved}/{len(before)} parameter "
+                             "tensors changed")
+    for k in first:
+        if k in PATH_KERNELS[mode]:
+            if first[k] < n_first or min(per_step[k]) < 1:
+                raise AssertionError(
+                    f"{mode}: {k} did not run on every step: {first[k]} "
+                    f"launches in {n_first} steps, per step {per_step[k]}")
+        elif launches[k]:
+            raise AssertionError(f"{mode}: {k} is not on this path but "
+                                 f"launched {launches[k]} times")
     med = statistics.median(step_ms)
-    log(f"main path: epoch of {n_first} steps from step 0 (warmup occupancy "
-        f"update) {epoch_s:.3f} s, loss {loss0}")
-    log(f"main path: losses from step 256: {losses}")
-    log(f"main path: step ms {[round(s, 3) for s in step_ms]}")
-    log(f"main path: level_histogram launches per step {per_step}")
-    result = {"real_step_ms": med, "rays_per_s": 2048 / (med / 1e3),
+    log(f"main path {mode}: epoch of {n_first} steps from step 0 (warmup "
+        f"occupancy update) {epoch_s:.3f} s, loss {loss0}")
+    log(f"main path {mode}: losses from step 256: {losses}")
+    log(f"main path {mode}: step ms {[round(s, 3) for s in step_ms]}")
+    log(f"main path {mode}: launches per step "
+        f"{ {k: per_step[k] for k in PATH_KERNELS[mode]} }")
+    result = {"vjp_mode": mode, "real_step_ms": med,
+              "rays_per_s": 2048 / (med / 1e3),
               "steps_timed": len(step_ms), "peak_mem_gb": peak / 1e9,
               "params_changed": f"{moved}/{len(before)}",
               "launches": launches, "card": card_line()}
@@ -265,7 +460,10 @@ def _busy_us(intervals) -> float:
 
 
 def step_trace(trainer, n: int = 5):
-    """Phase 6: trace n steady steps (none refreshes the occupancy grid)."""
+    """Phases 6 and 7: trace n steady steps (none refreshes the occupancy
+    grid). Device time by name: each kernel of the port, and the sorts (the
+    route's stable row sort under sort_pallas_rows; the samples' sorts of
+    the marcher on every path)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -295,14 +493,16 @@ def step_trace(trainer, n: int = 5):
         k = by_name.setdefault(e.name[:80], [0, 0.0])
         k[0] += 1
         k[1] += (e.time_range.end - e.time_range.start) / 1e3
-    hist = [v for k, v in by_name.items() if "level_histogram" in k]
     result = {
+        "vjp_mode": trainer.spec.grid.vjp_mode,
         "steps": n, "step_ms_traced": window_ms / n,
         "kernels_per_step": len(kern) / n,
         "device_busy_ms_per_step": busy_ms / n,
-        "device_idle_share": 1.0 - busy_ms / window_ms,
-        "level_histogram_launches_per_step": sum(c for c, _ in hist) / n,
-        "level_histogram_ms_per_step": sum(ms for _, ms in hist) / n}
+        "device_idle_share": 1.0 - busy_ms / window_ms}
+    for label in (*wrappers(), "sort"):
+        hits = [v for k, v in by_name.items() if label in k.lower()]
+        result[f"{label}_launches_per_step"] = sum(c for c, _ in hits) / n
+        result[f"{label}_ms_per_step"] = sum(ms for _, ms in hits) / n
     for k, (c, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"trace: {ms / n:8.3f} ms/step {c / n:7.1f} launches/step  {k}")
     log("trace:", json.dumps(result))
@@ -332,11 +532,11 @@ class _HostDraws:
                              generator=self.g).to(self.device)
 
 
-def small_reference(device):
-    """Phase 6: four real steps of a tiny config on the card and on the CPU
-    from the same parameters and draws: losses at rtol 1e-3, parameters
-    within 2*n*lr (Adam with eps 1e-15 turns round-off gradients into
-    full-lr moves)."""
+def small_reference(device, mode: str):
+    """Phase 8: four real steps of a tiny config under tpu.vjp_mode `mode`
+    on the card and on the CPU from the same parameters and draws: losses
+    at rtol 1e-3, parameters within 2*n*lr (Adam with eps 1e-15 turns
+    round-off gradients into full-lr moves)."""
     import torch
     from morpheus_tpu_torch.config import merge_defaults
     from morpheus_tpu_torch.data.dataset import load_synthetic
@@ -351,7 +551,8 @@ def small_reference(device):
         "tpu": {"max_samples_per_ray": 16, "march_steps": 64,
                 "occ_resolution": 16, "sample_budget": 8, "band_budget": 2,
                 "smooth_budget": 2, "occ_warmup_steps": 2,
-                "occ_update_every": 2, "grad_payload": "bfloat16"}})
+                "occ_update_every": 2, "grad_payload": "bfloat16",
+                "vjp_mode": mode}})
     runs = {}
     for dev in (device, torch.device("cpu")):
         tr = Trainer(cfg, load_synthetic(cfg), device=dev,
@@ -367,12 +568,13 @@ def small_reference(device):
     (lg, pg), (lc, pc) = runs[device.type], runs["cpu"]
     for a, b in zip(lg, lc):
         if not abs(a - b) <= 1e-3 * abs(b):
-            raise AssertionError(f"tiny run losses differ: {lg} vs {lc}")
+            raise AssertionError(f"{mode}: tiny run losses differ: {lg} vs "
+                                 f"{lc}")
     worst = max(float((a - b).abs().max()) for a, b in zip(pg, pc))
     if worst > 2 * 4 * lr:
-        raise AssertionError(f"tiny run params differ by {worst}")
-    log(f"small reference: card losses {lg}, CPU losses {lc}, max param "
-        f"diff {worst} (limit {2 * 4 * lr})")
+        raise AssertionError(f"{mode}: tiny run params differ by {worst}")
+    log(f"small reference {mode}: card losses {lg}, CPU losses {lc}, max "
+        f"param diff {worst} (limit {2 * 4 * lr})")
 
 
 def main() -> int:
@@ -389,30 +591,62 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    secs = {name: kernels.build(name) for name in kernels.SIGNATURES}
-    log(f"kernel build seconds: {secs}")
+    secs = kernels.build_all()
+    log(f"kernel build seconds (in parallel): {secs}")
     for name, text in kernels.build_logs.items():
         log(f"--- nvcc {name}\n{text.strip()}")
 
-    hist_rows, worst = check_hist(device, timed=True)
+    hist_rows, hist_worst = check_hist(device, timed=True)
+    segsum_rows, segsum_worst, sort_row = check_segsum(device)
+    gather_rows = check_gather(device)
     check_double_backward(device)
-    trainer, main = main_path(device)
-    step_trace(trainer)
-    del trainer
-    small_reference(device)
 
-    main_row = next(r for r in hist_rows if r["case"] == "hashed_c4"
-                    and r["dtype"] == "bfloat16")
-    # the kernel's numbers at its largest call of a step: the hashed tail of
-    # the main closure, bf16 payloads (every case is on a "hist" line above)
-    kernels_line = {"kernels": [{
-        "name": "level_histogram", "route": "cuda",
-        "source": "morpheus_tpu_torch/kernels/level_histogram.cu",
-        "replaces": "morpheus_tpu/ops/hist_pallas.py:105",
-        "launches": main["launches"], "max_abs_err": worst,
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}
+    from morpheus_tpu_torch.data.dataset import load_synthetic
+    from morpheus_tpu_torch.config import load_config
+    t0 = time.perf_counter()
+    ds = load_synthetic(load_config(os.path.join(HERE, "configs",
+                                                 "synthetic_bench.yaml")))
+    log(f"synthetic scene made in {time.perf_counter() - t0:.1f} s")
+    main = {}
+    for mode, n_timed in (("hist_rows", 20), ("mxu_rows", 10),
+                          ("sort_pallas_rows", 10)):
+        trainer, main[mode] = main_path(device, ds, mode, n_timed)
+        main[mode]["trace"] = step_trace(trainer)
+        del trainer
+        torch.cuda.empty_cache()
+    del ds
+    for mode in PATH_KERNELS:
+        small_reference(device, mode)
+    log("sort of sort_pallas_rows:", json.dumps(sort_row))
+    log("step ms by mode:", json.dumps({m: r["real_step_ms"]
+                                        for m, r in main.items()}))
+
+    def entry(name, replaces, mode, rows, worst, main_case):
+        # the kernel's numbers at its largest call of a step under its own
+        # mode (every case is on a line above); launches from that mode's
+        # main path
+        row = next(r for r in rows if main_case(r))
+        return {"name": name, "route": "cuda",
+                "source": f"morpheus_tpu_torch/kernels/{name}.cu",
+                "replaces": replaces,
+                "launches": main[mode]["launches"][name],
+                "max_abs_err": worst, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+    kernels_line = {"kernels": [
+        # hashed tail of the main closure, bf16 payloads
+        entry("level_histogram", "morpheus_tpu/ops/hist_pallas.py:105",
+              "hist_rows", hist_rows, hist_worst,
+              lambda r: r["case"] == "hashed_c4" and r["dtype"] == "bfloat16"),
+        # the fused sdf+color stream, bf16 payloads
+        entry("segment_sum_sorted", "morpheus_tpu/ops/segsum_pallas.py:81",
+              "sort_pallas_rows", segsum_rows, segsum_worst,
+              lambda r: r["case"] == "sorted_c4" and r["dtype"] == "bfloat16"),
+        # the fused sdf+color gather, one plane (bf16 payload)
+        entry("level_gather", "morpheus_tpu/ops/gather_pallas.py:79",
+              "mxu_rows", gather_rows, 0.0,
+              lambda r: r["case"] == "levels_c4_s1")]}
     log(card)
     log(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

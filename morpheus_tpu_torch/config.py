@@ -144,7 +144,8 @@ DEFAULTS: dict[str, dict[str, Any]] = {
         "mlp_dtype": "float32",      # port: float32 only
         "grad_payload": "float32",   # hash-grid cotangent payload type
                                      # ('float32' | 'bfloat16', f32 sums)
-        "vjp_mode": "hist_rows",     # port: hist_rows only
+        "vjp_mode": "hist_rows",     # hash-grid embedding-cotangent route
+                                     # (ops/hashgrid.VJP_MODES)
         "mesh_chunk": 2097152,
         "data_parallel": 1,          # port: 1 only
         "chain_steps": True,         # TPU dispatch only; ignored

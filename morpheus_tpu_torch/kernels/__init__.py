@@ -28,6 +28,14 @@ SIGNATURES = {
         "level_histogram_f32": [_P, _P, _P, _I, _I64, _I, _P, _P],
         "level_histogram_bf16": [_P, _P, _P, _I, _I64, _I, _P, _P],
     },
+    "segment_sum_sorted": {
+        "segment_sum_sorted_f32": [_P, _P, _I64, _I, _I64, _P, _P],
+        "segment_sum_sorted_bf16": [_P, _P, _I64, _I, _I64, _P, _P],
+    },
+    "level_gather": {
+        "level_gather_s1": [_P, _P, _P, _I, _I64, _I, _I64, _P, _P],
+        "level_gather_s3": [_P, _P, _P, _I, _I64, _I, _I64, _P, _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -52,24 +60,36 @@ def _target(name: str) -> tuple[str, str]:
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
-def build(name: str) -> float:
-    """Compile kernel `name` unless its library is there; returns the
-    seconds taken and raises with the compiler's output if nvcc fails."""
-    src, lib = _target(name)
-    if os.path.exists(lib):
-        return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    build_logs[name] = proc.stdout
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
-                           f"{proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, lib)
-    return time.perf_counter() - t0
+def build_all(names=None) -> dict[str, float]:
+    """Compile the kernels `names` (all by default) whose libraries are not
+    there, one nvcc per source, all started together; returns the seconds
+    each took (0 for one already built) and raises with the compiler's
+    output if any nvcc fails."""
+    names = list(SIGNATURES) if names is None else list(names)
+    secs, running = {}, {}
+    for name in names:
+        src, lib = _target(name)
+        if os.path.exists(lib):
+            secs[name] = 0.0
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, lib, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, lib, t0) in running.items():
+        build_logs[name] = proc.communicate()[0]
+        secs[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"kernel build failed: {name}: nvcc exited "
+                          f"{proc.returncode}\n{build_logs[name]}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return secs
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -79,7 +99,7 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     _, path = _target(name)
     if not os.path.exists(path):
-        build(name)
+        build_all([name])
     lib = ctypes.CDLL(path)
     for fn, argtypes in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes

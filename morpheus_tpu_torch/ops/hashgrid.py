@@ -1,13 +1,25 @@
 """Multi-resolution hash grid encoder (port of morpheus_tpu/ops/hashgrid.py,
-``vjp_mode: hist_rows`` with the packed dense prefix).
+every ``vjp_mode``; the packed dense prefix under ``hist_rows``).
 
-The forward is a row gather of the embedding table; its backward is the
-per-level histogram of ops/hist.py (a CUDA kernel on the card). The two are
-each other's backward (GatherRows / HistRows), so normals, which differentiate
-the encode twice, get exact second-order gradients. Each differentiated encode
-accumulates all of its embedding cotangents (sdf value, color, normal path)
-in one histogram launch per stream: one for the packed dense prefix, one for
-the hashed tail.
+The forward gathers table rows and its backward accumulates the row
+cotangents into the table, by the route that ``vjp_mode`` names (ROUTES):
+
+- ``hist_rows`` (default): row gather; per-level histogram (ops/hist.py);
+- ``mxu_rows``: per-level gather through a bf16 split (ops/gather.py);
+  the same histogram;
+- ``sort_pallas_rows`` and ``sort_pallas``: row gather; stable sort by row,
+  then the sorted segment sum (ops/segsum.py); ``sort_pallas`` keeps f32
+  payloads;
+- ``sort``, ``level_scatter``, ``scatter``: index_select under torch's own
+  autograd (its backward is index_add_).
+
+Each of the three ops is a CUDA kernel on the card. The gather and the
+accumulate are each other's backward (GatherRows / AccumulateRows), so
+normals, which differentiate the encode twice, get exact second-order
+gradients. Each differentiated encode accumulates all of its embedding
+cotangents (sdf value, color, normal path) in one launch per stream: under
+hist_rows one for the packed dense prefix and one for the hashed tail, under
+the other routes one for all levels.
 """
 from __future__ import annotations
 
@@ -18,11 +30,15 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .gather import level_gather
 from .hist import level_histogram
+from .segsum import segment_sum_sorted
 
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
            2165219737)
 _U32 = 0xFFFFFFFF
+VJP_MODES = ("hist_rows", "mxu_rows", "sort_pallas_rows", "sort_pallas",
+             "sort", "level_scatter", "scatter")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,14 +52,12 @@ class HashGridSpec:
     desired_resolution: int | None = None
     # 'linear' (trilinear), or 'nearest' for the occupancy queries
     interpolation: str = "linear"
-    vjp_mode: str = "hist_rows"     # the port implements hist_rows only
+    vjp_mode: str = "hist_rows"     # embedding-cotangent route, VJP_MODES
     grad_payload: str = "float32"   # 'float32' | 'bfloat16' cotangents
 
     def __post_init__(self):
-        if self.vjp_mode != "hist_rows":
-            raise NotImplementedError(
-                f"vjp_mode {self.vjp_mode!r}: the port implements 'hist_rows' "
-                "only (ROADMAP.md queue A, item A14)")
+        if self.vjp_mode not in VJP_MODES:
+            raise ValueError(f"vjp_mode {self.vjp_mode!r} not in {VJP_MODES}")
         if self.interpolation not in ("linear", "nearest"):
             raise NotImplementedError(
                 f"interpolation {self.interpolation!r}: the port implements "
@@ -137,53 +151,104 @@ def _starts(starts: tuple, device) -> torch.Tensor:
 
 
 class _Rows:
-    """Index stream of one gather: level-major local indices (L, Np) int32,
-    each level's start row, and the flat global rows for the forward."""
+    """Index stream of one gather: level-major local indices (L, Np) int32
+    and each level's start row; the flat global rows and their stable sort
+    are made when a route first needs them."""
 
     def __init__(self, local: torch.Tensor, starts: Sequence[int], n_rows: int):
         self.local = local.to(torch.int32)
         self.starts = tuple(int(s) for s in starts)
         self.n_rows = int(n_rows)
-        self.rows = (local.to(torch.int64)
-                     + _starts(self.starts, local.device)).reshape(-1)
+
+    @functools.cached_property
+    def rows(self) -> torch.Tensor:
+        """Flat global rows (L*Np,) int64."""
+        return (self.local.to(torch.int64)
+                + _starts(self.starts, self.local.device)).reshape(-1)
+
+    @functools.cached_property
+    def sorted(self):
+        """(keys (N,) int32, order (N,) int64): the rows in stable order."""
+        return torch.sort(self.rows.to(torch.int32), stable=True)
+
+
+def _round(ct: torch.Tensor, payload_dtype) -> torch.Tensor:
+    return ct if payload_dtype is None else ct.to(payload_dtype)
+
+
+def _gather_rows(emb, rows: _Rows, payload_dtype):
+    return emb.index_select(0, rows.rows)
+
+
+def _gather_levels(emb, rows: _Rows, payload_dtype):
+    # one bf16 plane under a bf16 payload, else three (f32 to 1 ulp)
+    n_split = 1 if payload_dtype == torch.bfloat16 else 3
+    return level_gather(rows.local, emb, rows.starts, n_split)
+
+
+def _histogram(ct, rows: _Rows, payload_dtype):
+    return level_histogram(rows.local, _round(ct, payload_dtype), rows.starts,
+                           rows.n_rows)
+
+
+def _sorted_segment_sum(ct, rows: _Rows, payload_dtype):
+    # the payload is rounded before the sort, as the JAX package does
+    keys, order = rows.sorted
+    vals = _round(ct, payload_dtype).index_select(0, order)
+    return segment_sum_sorted(keys, vals, rows.n_rows)
+
+
+# vjp_mode -> (gather, accumulate), each the other's transpose
+# (JAX hashgrid.py:81-288). sort, level_scatter and scatter have no kernel:
+# they gather with index_select under torch's own autograd (take_rows).
+ROUTES = {
+    "hist_rows": (_gather_rows, _histogram),
+    "mxu_rows": (_gather_levels, _histogram),
+    "sort_pallas_rows": (_gather_rows, _sorted_segment_sum),
+    "sort_pallas": (_gather_rows, _sorted_segment_sum),
+}
 
 
 class GatherRows(torch.autograd.Function):
-    """emb[rows]; backward: HistRows (the per-level histogram)."""
+    """The route's gather of table rows; backward: AccumulateRows."""
 
     @staticmethod
-    def forward(ctx, emb, rows: _Rows, payload_dtype):
-        ctx.rows, ctx.payload_dtype = rows, payload_dtype
-        return emb.index_select(0, rows.rows)
+    def forward(ctx, emb, rows: _Rows, mode: str, payload_dtype):
+        ctx.rows, ctx.mode, ctx.payload_dtype = rows, mode, payload_dtype
+        return ROUTES[mode][0](emb, rows, payload_dtype)
 
     @staticmethod
     def backward(ctx, ct):
-        return HistRows.apply(ct, ctx.rows, ctx.payload_dtype), None, None
+        return (AccumulateRows.apply(ct, ctx.rows, ctx.mode, ctx.payload_dtype),
+                None, None, None)
 
 
-class HistRows(torch.autograd.Function):
-    """Histogram of row cotangents into the (n_rows, C) table; backward:
-    GatherRows again. The payload is rounded to `payload_dtype` here only;
-    the transpose gather reads the f32 cotangent table unrounded."""
+class AccumulateRows(torch.autograd.Function):
+    """The route's accumulation of row cotangents into the (n_rows, C)
+    table; backward: GatherRows again. The payload is rounded to
+    `payload_dtype` here only; the transpose gather reads the f32 cotangent
+    table (through mxu_rows' bf16 split, as in the JAX package)."""
 
     @staticmethod
-    def forward(ctx, ct, rows: _Rows, payload_dtype):
-        ctx.rows, ctx.payload_dtype = rows, payload_dtype
-        vals = ct if payload_dtype is None else ct.to(payload_dtype)
-        out = level_histogram(rows.local, vals, rows.starts, rows.n_rows)
-        return out.to(ct.dtype)
+    def forward(ctx, ct, rows: _Rows, mode: str, payload_dtype):
+        ctx.rows, ctx.mode, ctx.payload_dtype = rows, mode, payload_dtype
+        return ROUTES[mode][1](ct, rows, payload_dtype).to(ct.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return GatherRows.apply(g, ctx.rows, ctx.payload_dtype), None, None
+        return (GatherRows.apply(g, ctx.rows, ctx.mode, ctx.payload_dtype),
+                None, None, None)
 
 
-def take_hist_rows(emb: torch.Tensor, idx_local: torch.Tensor,
-                   starts: Sequence[int], payload_dtype=None) -> torch.Tensor:
+def take_rows(emb: torch.Tensor, idx_local: torch.Tensor,
+              starts: Sequence[int], vjp_mode: str = "hist_rows",
+              payload_dtype=None) -> torch.Tensor:
     """Rows emb[starts[l] + idx_local[l, i]] in level-major order, (L*Np, C),
-    whose embedding cotangent accumulates through the level histogram."""
+    whose embedding cotangent accumulates through the vjp_mode's route."""
     rows = _Rows(idx_local, starts, emb.shape[0])
-    return GatherRows.apply(emb, rows, payload_dtype)
+    if vjp_mode in ROUTES:
+        return GatherRows.apply(emb, rows, vjp_mode, payload_dtype)
+    return emb.index_select(0, rows.rows)
 
 
 class _Levels:
@@ -287,7 +352,10 @@ def encode(inputs: torch.Tensor, embeddings: torch.Tensor, spec: HashGridSpec,
     P = x.shape[0]
     C = embeddings.shape[1]
     dev = x.device
-    pd = torch.bfloat16 if spec.grad_payload == "bfloat16" else None
+    # sort_pallas keeps f32 payloads whatever grad_payload says (JAX
+    # hashgrid.py:81-118)
+    pd = (torch.bfloat16 if spec.grad_payload == "bfloat16"
+          and spec.vjp_mode != "sort_pallas" else None)
 
     in_range = ((x >= 0.0) & (x <= 1.0)).all(-1, keepdim=True)
     offsets, resolutions = spec.offsets, spec.resolutions
@@ -297,10 +365,11 @@ def encode(inputs: torch.Tensor, embeddings: torch.Tensor, spec: HashGridSpec,
     n_corners = 1 if spec.interpolation == "nearest" else (1 << D)
     active = active_count(max_level, L_full)
 
-    # dense packed prefix: levels whose whole lattice fits the table gather
-    # one (2^D*C)-wide row per site from a table of 2^D shifted copies
+    # dense packed prefix (hist_rows only): levels whose whole lattice fits
+    # the table gather one (2^D*C)-wide row per site from a table of 2^D
+    # shifted copies
     k_pack = 0
-    if spec.interpolation != "nearest":
+    if spec.vjp_mode == "hist_rows" and spec.interpolation != "nearest":
         while (k_pack < L and resolutions[k_pack] ** D
                <= offsets[k_pack + 1] - offsets[k_pack]):
             k_pack += 1
@@ -315,7 +384,8 @@ def encode(inputs: torch.Tensor, embeddings: torch.Tensor, spec: HashGridSpec,
         wp = _corner_weights(pos, grid0, lv)                     # (k, 2^D, P)
         emb_packed = embeddings.index_select(
             0, _packed_rows(spec, k_pack, dev)).reshape(-1, n_corners * C)
-        featsp = take_hist_rows(emb_packed, base, offsets[:k_pack], pd)
+        featsp = take_rows(emb_packed, base, offsets[:k_pack], "hist_rows",
+                           pd)
         featsp = featsp.reshape(k_pack, P, n_corners, C)
         outs.append(torch.einsum("kpnc,knp->kpc", featsp, wp))   # (k, P, C)
 
@@ -332,8 +402,8 @@ def encode(inputs: torch.Tensor, embeddings: torch.Tensor, spec: HashGridSpec,
             cg = torch.minimum(grid0.to(torch.int64)[:, None] + lv.bits,
                                lv.res_max)                       # (Lu, n, P, D)
         local = _corner_rows(cg, lv.coef, lv.hashed, lv.size)
-        feats = take_hist_rows(embeddings, local.reshape(L_u, -1),
-                               offsets[k_pack:L], pd)
+        feats = take_rows(embeddings, local.reshape(L_u, -1),
+                          offsets[k_pack:L], spec.vjp_mode, pd)
         feats = feats.reshape(L_u, n_corners, P, C)
         outs.append(feats[:, 0] if w is None
                     else (w[..., None] * feats).sum(1))          # (Lu, P, C)

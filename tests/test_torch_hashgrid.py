@@ -12,7 +12,11 @@ Tolerances, stated per test:
 - encode with bfloat16 payloads: embedding gradients within one bf16 ulp of
   each update summed into a slot, on each side (2^-7 of the histogram of
   |cotangent|) - each side rounds its own float32 cotangent once, an error
-  of at most 2^-8 of it (bf16 keeps 8 significant bits).
+  of at most 2^-8 of it (bf16 keeps 8 significant bits);
+- encode under the other vjp_modes: the same, against JAX under the same
+  mode, except that the input gradient's atol is 1e-6 of its largest
+  magnitude (its per-corner terms of that size cancel) and the 'sort' mode
+  takes its JAX golden's rtol 1e-3, atol 1e-5 (JAX sums by cumsum).
 """
 import dataclasses
 
@@ -120,20 +124,38 @@ def _emb_and_points(kw, seed=3, n=257):
 
 
 def _abs_hist_grad(monkeypatch, fn, e):
-    orig = hashgrid.level_histogram
+    """Gradient of fn() in e with every accumulated payload (histogram or
+    sorted segment sum) replaced by its absolute value: per table slot, the
+    sum of |cotangent| into it."""
+    hist_fn, segsum_fn = hashgrid.level_histogram, hashgrid.segment_sum_sorted
     with monkeypatch.context() as m:
-        m.setattr(hashgrid, "level_histogram",
-                  lambda idx, vals, starts, n: orig(idx, vals.abs(), starts, n))
+        m.setattr(hashgrid, "level_histogram", lambda idx, vals, starts, n:
+                  hist_fn(idx, vals.abs(), starts, n))
+        m.setattr(hashgrid, "segment_sum_sorted", lambda keys, vals, size:
+                  segsum_fn(keys, vals.abs(), size))
         return torch.autograd.grad(fn(), e)[0].numpy()
 
 
-@pytest.mark.parametrize("grid", list(GRIDS))
-@pytest.mark.parametrize("payload", ["float32", "bfloat16"])
-def test_encode_matches_jax(grid, payload, monkeypatch):
-    kw = GRIDS[grid]
-    jspec = jhash.HashGridSpec(**kw, grad_payload=payload)
-    tspec = hashgrid.HashGridSpec(**kw, grad_payload=payload)
+def _check_encode(kw, payload, monkeypatch, gx_scaled=False, **mode):
+    """encode's values, embedding and input gradients, and the second-order
+    embedding gradient of sum((d encode / dx)^2), against JAX under the same
+    spec; `mode` sets vjp_mode and interpolation on both. gx_scaled takes
+    the input gradient's atol relative to its largest magnitude, as for the
+    second-order gradient: each entry sums per-corner terms of that size
+    that cancel, and the port sums them in another order than JAX."""
+    jspec = dataclasses.replace(jhash.HashGridSpec(**kw, grad_payload=payload),
+                                **mode)
+    tspec = dataclasses.replace(
+        hashgrid.HashGridSpec(**kw, grad_payload=payload), **mode)
     emb, x = _emb_and_points(kw)
+    # JAX's cumsum-based 'sort' route sums long runs with more round-off
+    # (its own golden test's tolerance, tests/test_hashgrid.py:164)
+    rtol, atol = ((1e-3, 1e-5) if tspec.vjp_mode == "sort"
+                  else (2e-5, 1e-6))
+    # the payload is rounded only where a route accumulates through a kernel
+    rounded = (payload == "bfloat16"
+               and tspec.vjp_mode in ("hist_rows", "mxu_rows",
+                                      "sort_pallas_rows"))
 
     def jf(e, xx):
         return jnp.sum(jnp.sin(jhash.encode(xx, e, jspec, bound=1.0)) ** 2)
@@ -157,38 +179,66 @@ def test_encode_matches_jax(grid, payload, monkeypatch):
     def tf():
         return (torch.sin(hashgrid.encode(xt, e, tspec, bound=1.0)) ** 2).sum()
 
-    ge, gx = torch.autograd.grad(tf(), (e, xt))
-    np.testing.assert_allclose(gx.numpy(), np.asarray(j_gx), rtol=2e-5,
-                               atol=1e-6)
+    ge, gx = torch.autograd.grad(tf(), (e, xt), materialize_grads=True)
+    np.testing.assert_allclose(
+        gx.numpy(), np.asarray(j_gx), rtol=rtol,
+        atol=atol * max(1.0, np.abs(np.asarray(j_gx)).max()) if gx_scaled
+        else atol)
+    # 'nearest' rounds x to a corner: no input gradient, no second order
+    second_order = tspec.interpolation != "nearest"
 
     def tg2():
         n = torch.autograd.grad(hashgrid.encode(xt, e, tspec, 1.0).sum(), xt,
                                 create_graph=True)[0]
         return (n ** 2).sum()
 
-    h = torch.autograd.grad(tg2(), e)[0]
-    if payload == "float32":
-        np.testing.assert_allclose(ge.numpy(), np.asarray(j_ge), rtol=2e-5,
-                                   atol=1e-6)
+    h = torch.autograd.grad(tg2(), e)[0] if second_order else None
+    if not rounded:
+        np.testing.assert_allclose(ge.numpy(), np.asarray(j_ge), rtol=rtol,
+                                   atol=atol)
         # second order: terms of the largest gradient's size cancel, so
         # round-off is absolute at that scale (in float64 the JAX and the
         # port results both sit ~1.5e-6 of max|h| from the exact value)
-        np.testing.assert_allclose(h.numpy(), np.asarray(j_h), rtol=2e-5,
-                                   atol=1e-6 * np.abs(np.asarray(j_h)).max())
+        if second_order:
+            np.testing.assert_allclose(
+                h.numpy(), np.asarray(j_h), rtol=rtol,
+                atol=atol * np.abs(np.asarray(j_h)).max())
     else:
-        for got, want, fn in ((ge, j_ge, tf), (h, j_h, tg2)):
+        checks = ((ge, j_ge, tf), (h, j_h, tg2))[:1 + second_order]
+        for got, want, fn in checks:
             bound = 2.0 ** -7 * _abs_hist_grad(monkeypatch, fn, e) + 1e-6
             err = np.abs(got.numpy() - np.asarray(want))
             assert (err <= bound + 2e-5 * np.abs(np.asarray(want))).all()
 
 
-def test_hist_backward_is_the_gather():
-    """Differentiating the embedding gradient (HistRows) goes through
-    GatherRows: d/dx of <grad_e, u> matches JAX's transpose of the
-    transpose, on the packed prefix and the hashed tail."""
-    kw = GRIDS["packed_and_hashed"]
-    jspec, tspec = jhash.HashGridSpec(**kw), hashgrid.HashGridSpec(**kw)
-    emb, x = _emb_and_points(kw, seed=5, n=61)
+@pytest.mark.parametrize("grid", list(GRIDS))
+@pytest.mark.parametrize("payload", ["float32", "bfloat16"])
+def test_encode_matches_jax(grid, payload, monkeypatch):
+    _check_encode(GRIDS[grid], payload, monkeypatch)
+
+
+@pytest.mark.parametrize("mode", ["mxu_rows", "sort_pallas_rows",
+                                  "sort_pallas", "sort", "level_scatter",
+                                  "scatter"])
+@pytest.mark.parametrize("payload", ["float32", "bfloat16"])
+def test_encode_matches_jax_under_vjp_mode(mode, payload, monkeypatch):
+    _check_encode(GRIDS["jax_golden"], payload, monkeypatch, gx_scaled=True,
+                  vjp_mode=mode)
+
+
+@pytest.mark.parametrize("payload", ["float32", "bfloat16"])
+def test_nearest_under_mxu_rows_matches_jax(payload, monkeypatch):
+    """The occupancy queries' 'nearest' encode under mxu_rows, whose
+    forward reads through the bf16 split."""
+    _check_encode(GRIDS["packed_and_hashed"], payload, monkeypatch,
+                  gx_scaled=True, vjp_mode="mxu_rows",
+                  interpolation="nearest")
+
+
+def _check_transpose_of_transpose(kw, seed, n, **mode):
+    jspec = dataclasses.replace(jhash.HashGridSpec(**kw), **mode)
+    tspec = dataclasses.replace(hashgrid.HashGridSpec(**kw), **mode)
+    emb, x = _emb_and_points(kw, seed=seed, n=n)
     u = np.random.default_rng(1).standard_normal(emb.shape).astype(np.float32)
 
     def jf(e, xx):
@@ -203,6 +253,24 @@ def test_hist_backward_is_the_gather():
     got = torch.autograd.grad((ge * torch.as_tensor(u)).sum(), xt)[0]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=1e-5)
+
+
+def test_hist_backward_is_the_gather():
+    """Differentiating the embedding gradient (AccumulateRows) goes through
+    GatherRows: d/dx of <grad_e, u> matches JAX's transpose of the
+    transpose, on the packed prefix and the hashed tail."""
+    _check_transpose_of_transpose(GRIDS["packed_and_hashed"], seed=5, n=61)
+
+
+@pytest.mark.parametrize("mode,payload", [
+    ("mxu_rows", "float32"), ("mxu_rows", "bfloat16"),
+    ("sort_pallas_rows", "bfloat16")])
+def test_accumulate_backward_is_the_route_gather(mode, payload):
+    """The transpose of each route's accumulate is its gather again: under
+    mxu_rows the bf16-split level_gather of the cotangent table (one plane
+    under a bf16 payload), under sort_pallas_rows the row gather."""
+    _check_transpose_of_transpose(GRIDS["jax_golden"], seed=6, n=61,
+                                  vjp_mode=mode, grad_payload=payload)
 
 
 def test_max_level_and_static_truncation_match_jax():

@@ -323,8 +323,13 @@ def test_curriculum_matches_jax():
 
 
 def test_hash_spec_rejects_other_vjp_modes():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HashGridSpec(vjp_mode="mxu_rows")
+    """The seven JAX vjp_mode names are taken (JAX hashgrid.py:385-404);
+    an unknown name raises ValueError."""
+    for mode in ("hist_rows", "mxu_rows", "sort_pallas_rows", "sort_pallas",
+                 "sort", "level_scatter", "scatter"):
+        assert HashGridSpec(vjp_mode=mode).vjp_mode == mode
+    with pytest.raises(ValueError, match="vjp_mode"):
+        HashGridSpec(vjp_mode="one_hot")
 
 
 @pytest.mark.parametrize("interpolation", ["smoothstep", "cubic"])

@@ -1,7 +1,8 @@
 """Shared pieces of the trainer parity tests (tests/test_torch_trainer.py,
-tests/test_torch_train_steps.py): a tiny synthetic config, a JAX/port
-trainer pair with the same parameters, and the replay of the JAX step's key
-tree into the port's named draw sites."""
+tests/test_torch_trainer_modes.py, tests/test_torch_train_steps.py): a tiny
+synthetic config, a JAX/port trainer pair with the same parameters, the
+replay of the JAX step's key tree into the port's named draw sites, and the
+real-loss parity check."""
 import numpy as np
 import torch
 import jax
@@ -14,7 +15,10 @@ from morpheus_tpu.train import trainer as jax_trainer
 from morpheus_tpu_torch import convert
 from morpheus_tpu_torch.config import merge_defaults
 from morpheus_tpu_torch.data.dataset import load_synthetic
+from morpheus_tpu_torch.ops import hashgrid, occupancy
 from morpheus_tpu_torch.train.trainer import Trainer
+
+GRIDS = ("sdf_grid", "color_grid")
 
 TINY = {
     "data": {"data_dir": "<synthetic>", "synthetic_frames": 4,
@@ -32,9 +36,10 @@ TINY = {
 }
 
 
-def config_pair(payload):
+def config_pair(payload, vjp_mode="hist_rows"):
     tiny = {k: dict(v) for k, v in TINY.items()}
     tiny["tpu"]["grad_payload"] = payload
+    tiny["tpu"]["vjp_mode"] = vjp_mode
     return jax_merge_defaults(tiny), merge_defaults(tiny)
 
 
@@ -103,8 +108,8 @@ def step_draws(key, cfg, num_frames, n_pix, step):
     return out
 
 
-def make_pair(payload):
-    jcfg, tcfg = config_pair(payload)
+def make_pair(payload, vjp_mode="hist_rows"):
+    jcfg, tcfg = config_pair(payload, vjp_mode)
     scene = jax_scene(num_frames=4, H=32, W=32)
     jtr = jax_trainer.Trainer(jcfg, jax_dataset.DeformDataset(jcfg, scene))
     ttr = Trainer(tcfg, load_synthetic(tcfg), device="cpu")
@@ -123,3 +128,79 @@ def make_pair(payload):
     jtr.state = jtr.state._replace(params=params)
     ttr.load_params(convert.params_from_jax(jax.tree.map(np.asarray, params)))
     return jcfg, jtr, ttr
+
+
+def _abs_hist_grads(monkeypatch, loss_fn, field):
+    """Grid gradients of loss_fn() with every accumulated payload
+    (histogram or sorted segment sum) replaced by its absolute value: per
+    table slot, the sum of |cotangent| into it."""
+    hist_fn, segsum_fn = hashgrid.level_histogram, hashgrid.segment_sum_sorted
+    with monkeypatch.context() as m:
+        m.setattr(hashgrid, "level_histogram", lambda idx, vals, starts, n:
+                  hist_fn(idx, vals.abs(), starts, n))
+        m.setattr(hashgrid, "segment_sum_sorted", lambda keys, vals, size:
+                  segsum_fn(keys, vals.abs(), size))
+        grads = torch.autograd.grad(loss_fn(), [getattr(field, g)
+                                                for g in GRIDS])
+    return {g: h.numpy() for g, h in zip(GRIDS, grads)}
+
+
+def check_real_loss_matches_jax(payload, vjp_mode, monkeypatch):
+    """Trainer.real_loss_from_batch and its parameter gradients against the
+    JAX trainer's on one fixed batch and occupancy grid (tolerances:
+    tests/test_torch_trainer.py)."""
+    jcfg, jtr, ttr = make_pair(payload, vjp_mode)
+    epoch = 6
+    ttr.epoch = jtr.epoch = epoch
+    al = jtr._active_levels()
+    assert ttr._active_levels() == al
+    ttr._set_levels(al)
+    spec = jtr._spec_for_levels(al)
+    assert spec.grid.vjp_mode == ttr.step_field.spec.grid.vjp_mode == vjp_mode
+    max_level = float(jtr.curr.max_level(epoch))
+
+    # a fixed batch and a fixed, partly occupied occupancy grid
+    key = jax.random.PRNGKey(11)
+    k_b, k_occ, k_bg, k_r = jax.random.split(key, 4)
+    batch = jax_dataset.sample_real_view_rays(k_b, jtr.data, 4, 64)
+    R = jcfg["tpu"]["occ_resolution"]
+    occs = np.asarray(jax.random.uniform(k_occ, (R ** 3,))) * 0.02
+    j_occ = jax_trainer.occupancy.OccupancyState(
+        occs=jnp.asarray(occs), binaries=jnp.asarray(occs > 0.01).reshape(
+            R, R, R))
+    bg = jax.random.uniform(k_bg, (64, 3))
+
+    def jloss(p):
+        return jtr.real_loss_from_batch(p, j_occ, k_r, epoch, max_level,
+                                        batch, bg, spec=spec)[0]
+
+    j_l, j_g = jax.jit(jax.value_and_grad(jloss))(jtr.state.params)
+
+    t_batch = {k: torch.as_tensor(np.array(v)) for k, v in batch.items()}
+    t_batch["rays_id"] = t_batch["rays_id"].long()
+    t_occ = occupancy.OccupancyState(
+        occs=torch.as_tensor(occs),
+        binaries=torch.as_tensor(occs > 0.01).reshape(R, R, R))
+
+    def t_loss():
+        return ttr.real_loss_from_batch(
+            t_occ, ReplayDraws(render_draws(k_r, jcfg, 64)), epoch,
+            max_level, t_batch, torch.as_tensor(np.array(bg)))[0]
+
+    t_l = t_loss()
+    t_g = torch.autograd.grad(t_l, ttr.params)
+    np.testing.assert_allclose(t_l.item(), float(j_l), rtol=1e-4)
+    got = convert.params_to_jax(
+        {n: g for (n, _), g in zip(ttr.field.named_parameters(), t_g)})
+    want = jax.tree.map(np.asarray, j_g)
+    bound = (_abs_hist_grads(monkeypatch, t_loss, ttr.field)
+             if payload == "bfloat16" else {})
+    flat_got = jax.tree_util.tree_leaves_with_path(got)
+    flat_want = dict(jax.tree_util.tree_leaves_with_path(want))
+    assert len(flat_got) == len(flat_want)
+    for path, g in flat_got:
+        name = path[0].key
+        atol = 1e-6 + (2.0 ** -7 * bound[name] if name in bound else 0.0)
+        w = flat_want[path]
+        bad = np.abs(g - w) > atol + 1e-3 * np.abs(w)
+        assert not bad.any(), (jax.tree_util.keystr(path), g[bad], w[bad])
