@@ -3,25 +3,34 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --kernels-only     # phases 1-4, then stop
+
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every hand-written kernel from the sources in this checkout, one
      nvcc per source, all started together;
-  3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the real-view training step gives it under its vjp_mode, and time
-     kernel, plain version and one PyTorch library call computing the same
-     function (`hist`, `segsum`, `gather` lines; the sort that precedes the
-     segment sum has its own `sort` line);
+  3. hold each kernel against its plain PyTorch version on the card, on
+     synthetic streams at the shapes the real-view training step gives it
+     under its vjp_mode (`hist`, `segsum`, `gather` lines; the sort that
+     precedes the segment sum has its own `sort` line). Each line times the
+     kernel, the plain version and one PyTorch library call computing the
+     same function: `ms`, `plain_ms` and `library_ms` are device time per
+     call (device_ms: k calls back to back, the host kept out), `call_ms`
+     is one kernel call with the wrapper's host work included;
   4. double-backward check of the GatherRows / AccumulateRows autograd pair
      under each kernel route (hist_rows, mxu_rows, sort_pallas_rows) on the
      card against the same computation on the CPU;
   5. the main path: Trainer(configs/synthetic_bench.yaml) on the card at full
      width, one epoch from step 0 (the full 128^3 warmup occupancy update)
      and 20 timed real steps from global step 256 (sampled occupancy
-     updates at 256 and 272), with every kernel's launch count read;
+     updates at 256 and 272), with every kernel's launch count read; then
+     one steady step and one sampled-refresh step with the kernels' calls
+     recorded (capture_streams), whose own index streams become kernel
+     lines `step_<mode>_<i>` as in phase 3;
   6. where a steady step's time goes: 5 steps that refresh no occupancy,
      traced with torch.profiler (device kernels per step, device busy time,
-     the card's idle share, each kernel's and the sorts' device time);
+     the card's idle share, each kernel's and the sorts' device time, per
+     step and per launch);
   7. phases 5 and 6 again under tpu.vjp_mode mxu_rows, then
      sort_pallas_rows: one epoch and 10 timed steps from step 256 each (the
      occupancy refreshes run through the mode too), then a 5-step trace;
@@ -56,8 +65,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median CUDA-event time of fn() over `reps` launches, after a warm-up."""
+def call_ms(fn, reps: int = 20) -> float:
+    """Median CUDA-event time of one fn() call, host work included: the card
+    is idle when the first event fires, so the wrapper's own host cost (its
+    checks, allocations and the launch) is inside the figure."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -71,6 +82,58 @@ def time_ms(fn, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+SPIN_HZ = 1.98e9                # H100 SXM boost clock: cycles of a spin
+
+
+def device_ms(fn, k: int = 50, reps: int = 5) -> tuple[float, bool]:
+    """Device time of one fn() call: k calls enqueued back to back between
+    two events, divided by k; the median of `reps` such runs, after a
+    warm-up. A device-side spin (torch.cuda._sleep) queued before the first
+    event, twice as long as the host took to queue k calls in the warm-up,
+    holds the card until the host has queued them all, so the host's cost
+    per call stays out of the figure. Returns (ms, gaps): gaps is True if
+    the card reached the first event before the host was done in any run -
+    fn then waits for the card itself (the plain twins copy their level
+    starts from host memory), and the time includes host gaps."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int((2 * k * host_s + 1e-3) * SPIN_HZ)
+    times, gaps = [], False
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(k):
+            fn()
+        b.record()
+        gaps = gaps or a.query()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / k)
+    return statistics.median(times), gaps
+
+
+def timings(kernel, plain, library) -> dict:
+    """ms (device time per call), call_ms (one call, host included),
+    plain_ms and library_ms (device time) of a kernel line; host_gaps names
+    the device times that include host gaps (see device_ms)."""
+    out, gaps = {}, []
+    for key, fn in (("ms", kernel), ("plain_ms", plain),
+                    ("library_ms", library)):
+        out[key], gap = (None, False) if fn is None else device_ms(fn)
+        if gap:
+            gaps.append(key)
+    out["call_ms"] = call_ms(kernel)
+    if gaps:
+        out["host_gaps"] = gaps
+    return out
 
 
 # the kernels of each vjp_mode's step, and the wrappers that count launches
@@ -108,11 +171,24 @@ def bench_grid():
     return offs, sizes, k_pack
 
 
-def level_stream(device, g, sizes, Np):
-    """Random per-level local indices (L, Np) int32, level l in [0, size)."""
+def level_stream(device, g, sizes, Np, clustered: bool = False):
+    """Per-level local indices (L, Np) int32, level l in [0, size): uniform
+    random, or clustered - runs of one row, of random length 1-64, each
+    run's row uniform random (as a ray's neighbouring samples that fall in
+    one cell of a coarse level)."""
     import torch
-    return torch.stack([torch.randint(0, s, (Np,), generator=g, device=device,
-                                      dtype=torch.int32) for s in sizes])
+    out = []
+    for s in sizes:
+        rows = torch.randint(0, s, (Np,), generator=g, device=device,
+                             dtype=torch.int32)
+        if clustered:
+            lens = torch.randint(1, 65, (Np,), generator=g, device=device)
+            run = torch.searchsorted(lens.cumsum(0),
+                                     torch.arange(Np, device=device),
+                                     right=True)
+            rows = rows[run]
+        out.append(rows)
+    return torch.stack(out)
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -122,26 +198,36 @@ def bound(nbytes: float, ops: float) -> dict:
             "bound_by": "bytes" if tb >= to else "operations"}
 
 
+def global_rows(local, starts):
+    """Flat global rows (L*Np,) int64 of a level-major local index stream."""
+    import torch
+    st = torch.as_tensor(list(starts), device=local.device).reshape(-1, 1)
+    return (local.long() + st).reshape(-1)
+
+
 def hist_cases(device):
     """The level_histogram calls of one real step at configs/
-    synthetic_bench.yaml: the hashed tail (11 levels of 32768 rows, Np =
-    8 corners x 40,960 sites: 32,768 samples + 8,192 smoothness sites) with
-    the fused sdf+color table (C=4) and the sdf-only table (C=2); all 16
-    levels (mxu_rows, C=4); the packed dense prefix (5 levels, C = 8
-    corners x 4); and one stream whose every update lands on one slot of its
-    level."""
+    synthetic_bench.yaml, on synthetic streams: the hashed tail (11 levels
+    of 32768 rows, Np = 8 corners x 40,960 sites: 32,768 samples + 8,192
+    smoothness sites) with the fused sdf+color table (C=4) and the sdf-only
+    table (C=2); all 16 levels (mxu_rows, C=4); the packed dense prefix (5
+    levels, C = 8 corners x 4); the hashed tail at C=4 in runs of equal
+    rows (clustered); and one stream whose every update lands on one slot
+    of its level. (name, idx, f32 payload, level starts, table rows)."""
     import torch
     offs, sizes, k_pack = bench_grid()
     g = torch.Generator(device=device)
     g.manual_seed(0)
     P = 40960
     cases = []
-    for name, lo, hi, C, Np in (("hashed_c4", k_pack, 16, 4, 8 * P),
-                                ("hashed_c2", k_pack, 16, 2, 8 * P),
-                                # mxu_rows' backward: all 16 levels
-                                ("all16_c4", 0, 16, 4, 8 * P),
-                                ("packed_c32", 0, k_pack, 32, P)):
-        idx = level_stream(device, g, sizes[lo:hi], Np)
+    for name, lo, hi, C, Np, clustered in (
+            ("hashed_c4", k_pack, 16, 4, 8 * P, False),
+            ("hashed_c2", k_pack, 16, 2, 8 * P, False),
+            # mxu_rows' backward: all 16 levels
+            ("all16_c4", 0, 16, 4, 8 * P, False),
+            ("packed_c32", 0, k_pack, 32, P, False),
+            ("clustered_c4", k_pack, 16, 4, 8 * P, True)):
+        idx = level_stream(device, g, sizes[lo:hi], Np, clustered)
         vals = torch.randn(((hi - lo) * Np, C), generator=g, device=device)
         cases.append((name, idx, vals, list(offs[lo:hi]), offs[hi]))
     L = 11
@@ -152,47 +238,61 @@ def hist_cases(device):
     return cases
 
 
-def check_hist(device, timed: bool):
-    """Phase 3: level_histogram against level_histogram_reference, both
-    payload types. Tolerance: |kernel - plain| <= 1e-5 * (histogram of
-    |payload|) + 1e-6 per slot - float32 sums taken in another order."""
+def hist_line(case, idx, vals, starts, n_rows, kw) -> dict:
+    """Phase 3: one level_histogram call against level_histogram_reference
+    on the same inputs, then timed. Tolerance: |kernel - plain| <= 1e-5 *
+    (histogram of |payload|) + 1e-6 per slot - float32 sums taken in
+    another order. The library call is one index_add_ of the payload, cast
+    to f32 (rounded to bf16 first where the call asks it), into a fresh f32
+    table: the zero-fill and the cast are timed with it."""
+    import torch
+    from morpheus_tpu_torch.ops import hist
+    got = hist.level_histogram(idx, vals, starts, n_rows, **kw)
+    ref = hist.level_histogram_reference(idx, vals, starts, n_rows, **kw)
+    habs = hist.level_histogram_reference(idx, vals.abs(), starts, n_rows,
+                                          **kw)
+    err = (got - ref).abs()
+    bad = err > 1e-5 * habs + 1e-6
+    if bool(bad.any()):
+        raise AssertionError(f"level_histogram {case} {vals.dtype} {kw}: "
+                             f"{int(bad.sum())} slots off, max err "
+                             f"{float(err.max())}")
+    (L, Np), C = idx.shape, vals.shape[1]
+    N = L * Np
+    rows = global_rows(idx, starts)
+    rnd = bool(kw.get("round_bf16", False))
+
+    def library():
+        v = vals.to(torch.bfloat16) if rnd else vals
+        return torch.zeros((n_rows, C), device=vals.device).index_add_(
+            0, rows, v.float())
+
+    row = {"case": case, "dtype": str(vals.dtype).split(".")[-1],
+           "round_bf16": rnd, "L": L, "Np": Np, "C": C, "rows": n_rows,
+           "max_abs_err": float(err.max())}
+    row.update(timings(
+        lambda: hist.level_histogram(idx, vals, starts, n_rows, **kw),
+        lambda: hist.level_histogram_reference(idx, vals, starts, n_rows,
+                                               **kw),
+        library))
+    row.update(bound(N * 4 + N * C * vals.element_size() + n_rows * C * 4,
+                     N * C))
+    log("hist", json.dumps(row))
+    return row
+
+
+def check_hist(device):
+    """Phase 3: the synthetic level_histogram cases: f32 and bf16 payloads,
+    and f32 payloads rounded to bf16 by the kernel (round_bf16, the step's
+    bf16 route)."""
     import torch
     from morpheus_tpu_torch.ops import hist
     rows_out = []
-    worst = 0.0
     for name, idx, vals32, starts, n_rows in hist_cases(device):
-        for dt in (torch.float32, torch.bfloat16):
-            vals = vals32.to(dt)
-            got = hist.level_histogram(idx, vals, starts, n_rows)
-            ref = hist.level_histogram_reference(idx, vals, starts, n_rows)
-            habs = hist.level_histogram_reference(idx, vals.abs(), starts,
-                                                  n_rows)
-            err = (got - ref).abs()
-            bad = err > 1e-5 * habs + 1e-6
-            if bool(bad.any()):
-                raise AssertionError(f"level_histogram {name} {dt}: "
-                                     f"{int(bad.sum())} slots off, max err "
-                                     f"{float(err.max())}")
-            max_err = float(err.max())
-            worst = max(worst, max_err)
-            row = {"case": name, "dtype": str(dt).split(".")[-1],
-                   "L": idx.shape[0], "Np": idx.shape[1], "C": vals.shape[1],
-                   "rows": n_rows, "max_abs_err": max_err}
-            if timed:
-                N, C = idx.numel(), vals.shape[1]
-                st = torch.as_tensor(starts, device=device).reshape(-1, 1)
-                glob = (idx.long() + st).reshape(-1)
-                v32 = vals.float()
-                lib = torch.zeros((n_rows, C), device=device)
-                row["ms"] = time_ms(lambda: hist.level_histogram(
-                    idx, vals, starts, n_rows))
-                row["plain_ms"] = time_ms(lambda: hist.level_histogram_reference(
-                    idx, vals, starts, n_rows))
-                row["library_ms"] = time_ms(lambda: lib.index_add_(0, glob, v32))
-                row.update(bound(N * 4 + N * C * vals.element_size()
-                                 + n_rows * C * 4, N * C))
-            rows_out.append(row)
-            log("hist", json.dumps(row))
+        for dt, kw in ((torch.float32, {}), (torch.bfloat16, {}),
+                       (torch.float32, {"round_bf16": True})):
+            rows_out.append(hist_line(name, idx, vals32.to(dt), starts,
+                                      n_rows, kw))
     # an empty stream launches nothing and is not counted
     n0 = hist.level_histogram.launches
     empty = hist.level_histogram(torch.zeros((2, 0), dtype=torch.int32,
@@ -200,7 +300,7 @@ def check_hist(device, timed: bool):
                                  torch.zeros((0, 4), device=device), [0, 8], 16)
     if hist.level_histogram.launches != n0 or bool(empty.any()):
         raise AssertionError("level_histogram counted an empty stream")
-    return rows_out, worst
+    return rows_out
 
 
 def segsum_cases(device):
@@ -214,8 +314,7 @@ def segsum_cases(device):
     g = torch.Generator(device=device)
     g.manual_seed(1)
     local = level_stream(device, g, sizes, 8 * 40960)
-    st = torch.as_tensor(offs[:16], device=device).reshape(-1, 1)
-    rows = (local.long() + st).reshape(-1).to(torch.int32)
+    rows = global_rows(local, offs[:16]).to(torch.int32)
     keys = torch.sort(rows, stable=True).values
     N, T = rows.numel(), offs[16]
     cases = [(f"sorted_c{C}", keys,
@@ -227,43 +326,47 @@ def segsum_cases(device):
     return cases, rows
 
 
-def check_segsum(device):
-    """Phase 3: segment_sum_sorted against segment_sum_sorted_reference,
-    both payload types. Tolerance: |kernel - plain| <= 1e-5 * (sum of
-    |payload| into the slot) + 1e-6 - float32 sums in another order."""
+def segsum_line(case, keys, vals, T) -> dict:
+    """Phase 3: one segment_sum_sorted call against
+    segment_sum_sorted_reference, then timed. Tolerance: |kernel - plain| <=
+    1e-5 * (sum of |payload| into the slot) + 1e-6 - float32 sums in another
+    order. The library call is one index_add_ of the payload cast to f32
+    into a fresh f32 table."""
     import torch
     from morpheus_tpu_torch.ops import segsum
-    rows_out, worst = [], 0.0
+    got = segsum.segment_sum_sorted(keys, vals, T)
+    ref = segsum.segment_sum_sorted_reference(keys, vals, T)
+    habs = segsum.segment_sum_sorted_reference(keys, vals.abs(), T)
+    err = (got - ref).abs()
+    bad = err > 1e-5 * habs + 1e-6
+    if bool(bad.any()):
+        raise AssertionError(f"segment_sum_sorted {case} {vals.dtype}: "
+                             f"{int(bad.sum())} slots off, max err "
+                             f"{float(err.max())}")
+    N, C = vals.shape
+    keys64 = keys.long()
+    row = {"case": case, "dtype": str(vals.dtype).split(".")[-1], "N": N,
+           "C": C, "rows": T, "max_abs_err": float(err.max())}
+    row.update(timings(
+        lambda: segsum.segment_sum_sorted(keys, vals, T),
+        lambda: segsum.segment_sum_sorted_reference(keys, vals, T),
+        lambda: torch.zeros((T, C), device=vals.device).index_add_(
+            0, keys64, vals.float())))
+    row.update(bound(N * 4 + N * C * vals.element_size() + T * C * 4, N * C))
+    log("segsum", json.dumps(row))
+    return row
+
+
+def check_segsum(device):
+    """Phase 3: the synthetic segment_sum_sorted cases, both payload types,
+    and the sort in front of the kernel."""
+    import torch
+    from morpheus_tpu_torch.ops import segsum
+    rows_out = []
     cases, rows = segsum_cases(device)
     for name, keys, vals32, T in cases:
         for dt in (torch.float32, torch.bfloat16):
-            vals = vals32.to(dt)
-            got = segsum.segment_sum_sorted(keys, vals, T)
-            ref = segsum.segment_sum_sorted_reference(keys, vals, T)
-            habs = segsum.segment_sum_sorted_reference(keys, vals.abs(), T)
-            err = (got - ref).abs()
-            bad = err > 1e-5 * habs + 1e-6
-            if bool(bad.any()):
-                raise AssertionError(f"segment_sum_sorted {name} {dt}: "
-                                     f"{int(bad.sum())} slots off, max err "
-                                     f"{float(err.max())}")
-            N, C = vals.shape
-            keys64, v32 = keys.long(), vals.float()
-            lib = torch.zeros((T, C), device=device)
-            row = {"case": name, "dtype": str(dt).split(".")[-1], "N": N,
-                   "C": C, "rows": T, "max_abs_err": float(err.max()),
-                   "ms": time_ms(lambda: segsum.segment_sum_sorted(
-                       keys, vals, T)),
-                   "plain_ms": time_ms(
-                       lambda: segsum.segment_sum_sorted_reference(
-                           keys, vals, T)),
-                   "library_ms": time_ms(lambda: lib.index_add_(0, keys64,
-                                                                v32))}
-            row.update(bound(N * 4 + N * C * vals.element_size() + T * C * 4,
-                             N * C))
-            worst = max(worst, row["max_abs_err"])
-            rows_out.append(row)
-            log("segsum", json.dumps(row))
+            rows_out.append(segsum_line(name, keys, vals32.to(dt), T))
     # the sort in front of the kernel (ops/hashgrid.py _sorted_segment_sum):
     # stable sort of the rows, then the bf16 payload permuted by its order
     payload = torch.randn((rows.numel(), 4), device=device).to(torch.bfloat16)
@@ -273,8 +376,8 @@ def check_segsum(device):
         return payload.index_select(0, order)
 
     sort_row = {"N": rows.numel(), "C": 4, "dtype": "bfloat16",
-                "sort_ms": time_ms(lambda: torch.sort(rows, stable=True)),
-                "sort_and_permute_ms": time_ms(sort_and_permute)}
+                "sort_ms": device_ms(lambda: torch.sort(rows, stable=True))[0],
+                "sort_and_permute_ms": device_ms(sort_and_permute)[0]}
     log("sort", json.dumps(sort_row))
     n0 = segsum.segment_sum_sorted.launches
     empty = segsum.segment_sum_sorted(
@@ -282,16 +385,17 @@ def check_segsum(device):
         torch.zeros((0, 4), device=device), 16)
     if segsum.segment_sum_sorted.launches != n0 or bool(empty.any()):
         raise AssertionError("segment_sum_sorted counted an empty stream")
-    return rows_out, worst, sort_row
+    return rows_out, sort_row
 
 
 def gather_cases(device):
     """The level_gather calls of one mxu_rows step at configs/
-    synthetic_bench.yaml: 16 levels x Np = 8 corners x 40,960 sites from
-    the fused sdf+color table (C=4) and the sdf table (C=2), one plane (bf16
-    payload, the bench's) and three (f32); the occupancy refresh's
-    'nearest' queries (16 levels x 32,768 points per chunk, C=2, one
-    plane); and every index on one row."""
+    synthetic_bench.yaml, on synthetic streams: 16 levels x Np = 8 corners x
+    40,960 sites from the fused sdf+color table (C=4) and the sdf table
+    (C=2), one plane (bf16 payload, the bench's) and three (f32); the
+    occupancy refresh's 'nearest' queries (16 levels x 32,768 points per
+    chunk, C=2, one plane); the C=4 stream in runs of equal rows
+    (clustered); and every index on one row."""
     import torch
     offs, sizes, _ = bench_grid()
     g = torch.Generator(device=device)
@@ -303,42 +407,117 @@ def gather_cases(device):
              for C in (4, 2) for S in (1, 3)]
     cases.append(("nearest_c2_s1", level_stream(device, g, sizes, 32768),
                   emb[2], 1))
+    cases.append(("clustered_c4_s1", level_stream(device, g, sizes, Np, True),
+                  emb[4], 1))
     cases.append(("one_row_c4_s3", torch.zeros_like(local), emb[4], 3))
     return cases, list(offs[:16])
 
 
-def check_gather(device):
-    """Phase 3: level_gather against level_gather_reference, bit for bit
-    (both round the same f32 values to nearest even and sum the planes in
-    the same order)."""
+def gather_line(case, local, emb, starts, S) -> dict:
+    """Phase 3: one level_gather call against level_gather_reference, bit
+    for bit (both round the same f32 values to nearest even and sum the
+    planes in the same order), then timed. The library call is one
+    index_select of the same rows (it does not round)."""
     import torch
     from morpheus_tpu_torch.ops import gather
-    rows_out = []
+    got = gather.level_gather(local, emb, starts, S)
+    ref = gather.level_gather_reference(local, emb, starts, S)
+    if not torch.equal(got, ref):
+        err = (got - ref).abs()
+        raise AssertionError(f"level_gather {case}: {int((err > 0).sum())}"
+                             f" values differ, max err {float(err.max())}")
+    (L, Np), (T, C) = local.shape, emb.shape
+    N = L * Np
+    rows = global_rows(local, starts)
+    row = {"case": case, "L": L, "Np": Np, "C": C, "S": S, "rows": T,
+           "max_abs_err": 0.0}
+    row.update(timings(
+        lambda: gather.level_gather(local, emb, starts, S),
+        lambda: gather.level_gather_reference(local, emb, starts, S),
+        lambda: emb.index_select(0, rows)))
+    # two subtractions and two additions per value under three planes
+    row.update(bound(N * 4 + T * C * 4 + N * C * 4,
+                     N * C * (4 if S == 3 else 0)))
+    log("gather", json.dumps(row))
+    return row
+
+
+def check_gather(device):
+    """Phase 3: the synthetic level_gather cases."""
     cases, starts = gather_cases(device)
-    for name, local, emb, S in cases:
-        got = gather.level_gather(local, emb, starts, S)
-        ref = gather.level_gather_reference(local, emb, starts, S)
-        if not torch.equal(got, ref):
-            err = (got - ref).abs()
-            raise AssertionError(f"level_gather {name}: {int((err > 0).sum())}"
-                                 f" values differ, max err {float(err.max())}")
-        (L, Np), (T, C) = local.shape, emb.shape
-        N = L * Np
-        glob = (local.long() + torch.as_tensor(starts, device=device)
-                .reshape(-1, 1)).reshape(-1)
-        row = {"case": name, "L": L, "Np": Np, "C": C, "S": S, "rows": T,
-               "max_abs_err": 0.0,
-               "ms": time_ms(lambda: gather.level_gather(local, emb, starts,
-                                                         S)),
-               "plain_ms": time_ms(lambda: gather.level_gather_reference(
-                   local, emb, starts, S)),
-               "library_ms": time_ms(lambda: emb.index_select(0, glob))}
-        # two subtractions and two additions per value under three planes
-        row.update(bound(N * 4 + T * C * 4 + N * C * 4,
-                         N * C * (4 if S == 3 else 0)))
-        rows_out.append(row)
-        log("gather", json.dumps(row))
-    return rows_out
+    return [gather_line(name, local, emb, starts, S)
+            for name, local, emb, S in cases]
+
+
+# the names ops/hashgrid.py calls its kernels by
+CAPTURED = ("level_histogram", "level_gather", "segment_sum_sorted")
+
+
+def capture_streams(trainer) -> list:
+    """The kernel calls of one steady real step and of one sampled-refresh
+    step's occupancy refresh, as the step makes them: recorders wrap the
+    names in ops/hashgrid.py (which binds the kernels at import) and the
+    trainer's refresh, clone every argument and call the real function; the
+    originals are restored afterwards. Returns [{"kernel", "phase" ("step"
+    or "refresh"), "args", "kw"}], the steady step's calls first."""
+    import torch
+    from morpheus_tpu_torch.ops import hashgrid
+
+    def clone(a):
+        return a.detach().clone() if isinstance(a, torch.Tensor) else a
+
+    calls, phase = [], ["step"]
+
+    def recorder(name, fn):
+        def record(*args, **kw):
+            calls.append({"kernel": name, "phase": phase[0],
+                          "args": tuple(clone(a) for a in args),
+                          "kw": {k: clone(v) for k, v in kw.items()}})
+            return fn(*args, **kw)
+        return record
+
+    refresh = trainer._maybe_update_occ
+
+    def traced_refresh(*args, **kw):
+        phase[0] = "refresh"
+        try:
+            return refresh(*args, **kw)
+        finally:
+            phase[0] = "step"
+
+    tpu = trainer.config["tpu"]
+    every = tpu["occ_update_every"]
+    base = max(trainer.global_step, tpu["occ_warmup_steps"])
+    base = -(-base // every) * every                  # a sampled refresh
+    originals = {n: getattr(hashgrid, n) for n in CAPTURED}
+    try:
+        for n, fn in originals.items():
+            setattr(hashgrid, n, recorder(n, fn))
+        trainer._maybe_update_occ = traced_refresh
+        trainer.global_step = base + 1                 # steady: no refresh
+        trainer.real_step(trainer.epoch)
+        n_steady = len(calls)
+        trainer.global_step = base + every             # refreshes first
+        trainer.real_step(trainer.epoch)
+    finally:
+        for n, fn in originals.items():
+            setattr(hashgrid, n, fn)
+        del trainer._maybe_update_occ
+    return calls[:n_steady] + [c for c in calls[n_steady:]
+                               if c["phase"] == "refresh"]
+
+
+def step_lines(mode, calls) -> dict:
+    """Phase 5's captured calls as kernel lines, case step_<mode>_<i>."""
+    out = {k: [] for k in CAPTURED}
+    line = {"level_histogram": lambda name, a, kw: hist_line(name, *a, kw),
+            "level_gather": lambda name, a, kw: gather_line(name, *a),
+            "segment_sum_sorted": lambda name, a, kw: segsum_line(name, *a)}
+    for i, c in enumerate(calls):
+        row = line[c["kernel"]](f"step_{mode}_{i}", c["args"], c["kw"])
+        row["phase"] = c["phase"]
+        out[c["kernel"]].append(row)
+    return out
 
 
 def check_double_backward(device):
@@ -503,6 +682,9 @@ def step_trace(trainer, n: int = 5):
         hits = [v for k, v in by_name.items() if label in k.lower()]
         result[f"{label}_launches_per_step"] = sum(c for c, _ in hits) / n
         result[f"{label}_ms_per_step"] = sum(ms for _, ms in hits) / n
+        launches = sum(c for c, _ in hits)
+        result[f"{label}_ms_per_launch"] = (
+            sum(ms for _, ms in hits) / launches if launches else None)
     for k, (c, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"trace: {ms / n:8.3f} ms/step {c / n:7.1f} launches/step  {k}")
     log("trace:", json.dumps(result))
@@ -532,16 +714,11 @@ class _HostDraws:
                              generator=self.g).to(self.device)
 
 
-def small_reference(device, mode: str):
-    """Phase 8: four real steps of a tiny config under tpu.vjp_mode `mode`
-    on the card and on the CPU from the same parameters and draws: losses
-    at rtol 1e-3, parameters within 2*n*lr (Adam with eps 1e-15 turns
-    round-off gradients into full-lr moves)."""
-    import torch
+def tiny_config(mode: str) -> dict:
+    """A tiny real-step config under tpu.vjp_mode `mode`: a 4-level hash
+    grid (one packed dense level, three hashed) on a 4-frame 32x32 scene."""
     from morpheus_tpu_torch.config import merge_defaults
-    from morpheus_tpu_torch.data.dataset import load_synthetic
-    from morpheus_tpu_torch.train.trainer import Trainer
-    cfg = merge_defaults({
+    return merge_defaults({
         "data": {"data_dir": "<synthetic>", "synthetic_frames": 4,
                  "synthetic_res": 32},
         "train": {"n_epochs": 8, "real_ray_num": 64, "warm_up_end": 4},
@@ -553,6 +730,17 @@ def small_reference(device, mode: str):
                 "smooth_budget": 2, "occ_warmup_steps": 2,
                 "occ_update_every": 2, "grad_payload": "bfloat16",
                 "vjp_mode": mode}})
+
+
+def small_reference(device, mode: str):
+    """Phase 8: four real steps of tiny_config(mode) on the card and on the
+    CPU from the same parameters and draws: losses at rtol 1e-3, parameters
+    within 2*n*lr (Adam with eps 1e-15 turns round-off gradients into
+    full-lr moves)."""
+    import torch
+    from morpheus_tpu_torch.data.dataset import load_synthetic
+    from morpheus_tpu_torch.train.trainer import Trainer
+    cfg = tiny_config(mode)
     runs = {}
     for dev in (device, torch.device("cpu")):
         tr = Trainer(cfg, load_synthetic(cfg), device=dev,
@@ -596,10 +784,13 @@ def main() -> int:
     for name, text in kernels.build_logs.items():
         log(f"--- nvcc {name}\n{text.strip()}")
 
-    hist_rows, hist_worst = check_hist(device, timed=True)
-    segsum_rows, segsum_worst, sort_row = check_segsum(device)
-    gather_rows = check_gather(device)
+    rows = {"level_histogram": check_hist(device),
+            "level_gather": check_gather(device)}
+    rows["segment_sum_sorted"], sort_row = check_segsum(device)
     check_double_backward(device)
+    if "--kernels-only" in sys.argv[1:]:
+        log("kernels only: every kernel built and matched its plain twin")
+        return 0
 
     from morpheus_tpu_torch.data.dataset import load_synthetic
     from morpheus_tpu_torch.config import load_config
@@ -611,8 +802,15 @@ def main() -> int:
     for mode, n_timed in (("hist_rows", 20), ("mxu_rows", 10),
                           ("sort_pallas_rows", 10)):
         trainer, main[mode] = main_path(device, ds, mode, n_timed)
+        # the step's own index streams, after the counted run
+        calls = capture_streams(trainer)
+        log(f"captured {mode}:", json.dumps(
+            [f"{c['kernel']}/{c['phase']}" for c in calls]))
         main[mode]["trace"] = step_trace(trainer)
         del trainer
+        for k, r in step_lines(mode, calls).items():
+            rows[k] += r
+        del calls
         torch.cuda.empty_cache()
     del ds
     for mode in PATH_KERNELS:
@@ -621,32 +819,33 @@ def main() -> int:
     log("step ms by mode:", json.dumps({m: r["real_step_ms"]
                                         for m, r in main.items()}))
 
-    def entry(name, replaces, mode, rows, worst, main_case):
-        # the kernel's numbers at its largest call of a step under its own
-        # mode (every case is on a line above); launches from that mode's
-        # main path
-        row = next(r for r in rows if main_case(r))
+    def entry(name, replaces, mode):
+        # the kernel's numbers at its largest captured call of a step under
+        # its own mode (every case is on a line above); launches from that
+        # mode's main path; device time per launch from each mode's trace
+        step = [r for r in rows[name] if r["case"].startswith(f"step_{mode}_")
+                and r["phase"] == "step"]
+        row = max(step, key=lambda r: r["L"] * r["Np"] * r["C"]
+                  if "Np" in r else r["N"] * r["C"])
         return {"name": name, "route": "cuda",
                 "source": f"morpheus_tpu_torch/kernels/{name}.cu",
-                "replaces": replaces,
+                "replaces": replaces, "case": row["case"],
                 "launches": main[mode]["launches"][name],
-                "max_abs_err": worst, "ms": row["ms"],
+                "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+                "ms": row["ms"], "call_ms": row["call_ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "device_ms_per_launch": {
+                    m: main[m]["trace"][f"{name}_ms_per_launch"]
+                    for m, ks in PATH_KERNELS.items() if name in ks}}
 
     kernels_line = {"kernels": [
-        # hashed tail of the main closure, bf16 payloads
         entry("level_histogram", "morpheus_tpu/ops/hist_pallas.py:105",
-              "hist_rows", hist_rows, hist_worst,
-              lambda r: r["case"] == "hashed_c4" and r["dtype"] == "bfloat16"),
-        # the fused sdf+color stream, bf16 payloads
+              "hist_rows"),
         entry("segment_sum_sorted", "morpheus_tpu/ops/segsum_pallas.py:81",
-              "sort_pallas_rows", segsum_rows, segsum_worst,
-              lambda r: r["case"] == "sorted_c4" and r["dtype"] == "bfloat16"),
-        # the fused sdf+color gather, one plane (bf16 payload)
+              "sort_pallas_rows"),
         entry("level_gather", "morpheus_tpu/ops/gather_pallas.py:79",
-              "mxu_rows", gather_rows, 0.0,
-              lambda r: r["case"] == "levels_c4_s1")]}
+              "mxu_rows")]}
     log(card)
     log(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

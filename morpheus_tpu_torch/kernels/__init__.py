@@ -25,8 +25,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "level_histogram": {
-        "level_histogram_f32": [_P, _P, _P, _I, _I64, _I, _P, _P],
-        "level_histogram_bf16": [_P, _P, _P, _I, _I64, _I, _P, _P],
+        "level_histogram_f32": [_P, _P, _P, _I, _I64, _I, _I64, _I, _P, _P],
+        "level_histogram_bf16": [_P, _P, _P, _I, _I64, _I, _I64, _I, _P, _P],
     },
     "segment_sum_sorted": {
         "segment_sum_sorted_f32": [_P, _P, _I64, _I, _I64, _P, _P],

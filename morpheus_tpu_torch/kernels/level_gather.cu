@@ -16,16 +16,23 @@
 // The TPU's one-hot selection exists to keep the table in VMEM and off the
 // TPU's slow random access; it is not copied. The kernel reads the f32 (T, C)
 // table itself and splits only the value it needs, so the per-call repack of the
-// whole table into bf16 planes folds away.
+// whole table into bf16 planes folds away. Rows outside the table read as 0.
 //
 // What bounds it on this card: the index stream read once, the table read once
 // (it is 6.7 MB at the bench width and stays in the 50 MB L2) and the (N, C)
-// output written once; the output is the largest stream. One thread per
-// (update, channel): neighbouring lanes read neighbouring words of one table row
-// and write neighbouring words of the output, so the output writes are
-// coalesced and a warp's index reads are broadcast. One grid row (blockIdx.y)
-// per level keeps the level's start uniform and the index math 32-bit. Rows
-// outside the table read as 0.
+// output written once; the output is the largest stream (84 MB at C=4) and is
+// read once, later. For C = 2 and 4 (the forward of mxu_rows, the occupancy
+// refresh's sdf-only 'nearest' queries, the double backward's gather of the
+// cotangent table) one thread takes whole rows: it reads the index once, loads
+// the row with one 8- or 16-byte read-only load (__ldg, L2-resident), forms the
+// split in registers and writes the row with one 8- or 16-byte streaming store
+// (__stcs, so the output does not push the table out of L2). Each thread keeps
+// UNROLL updates in flight (all index loads, then all row loads, then all
+// stores), and the grid covers the stream once: N / (256 * UNROLL) blocks, a few
+// waves of the 132 SMs at the step's shapes. One grid row (blockIdx.y) per
+// level keeps the level's start uniform. Any other C, or a table or output not
+// aligned for the vector access, takes the generic kernel of the same family:
+// one thread per (update, channel).
 //
 // Built with: nvcc -gencode=arch=compute_90a,code=sm_90a -shared -Xcompiler -fPIC
 // and called through the plain C entry points below (ctypes).
@@ -36,6 +43,9 @@
 
 #define MAX_LEVELS 64
 
+constexpr int THREADS = 256;
+constexpr int UNROLL = 4;   // updates in flight per thread
+
 struct LevelStarts {
   int64_t v[MAX_LEVELS];
 };
@@ -44,11 +54,74 @@ __device__ __forceinline__ float bf16_rn(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// the S-plane bf16 split of one value, summed back in f32: (t1 + t2) + t3
 template <int S>
-__global__ void level_gather_kernel(const int32_t* __restrict__ idx,
-                                    const float* __restrict__ table, LevelStarts starts,
-                                    float* __restrict__ out, int64_t n_per_level,
-                                    int n_chan, int64_t n_rows) {
+__device__ __forceinline__ float split(float x) {
+  float y = bf16_rn(x);
+  if (S == 3) {
+    const float r1 = __fsub_rn(x, y);
+    const float t2 = bf16_rn(r1);
+    const float t3 = bf16_rn(__fsub_rn(r1, t2));
+    y = __fadd_rn(__fadd_rn(y, t2), t3);
+  }
+  return y;
+}
+
+template <int C> struct Row;
+template <> struct Row<2> {
+  using T = float2;
+  template <int S> static __device__ __forceinline__ T split_row(T x) {
+    return make_float2(split<S>(x.x), split<S>(x.y));
+  }
+};
+template <> struct Row<4> {
+  using T = float4;
+  template <int S> static __device__ __forceinline__ T split_row(T x) {
+    return make_float4(split<S>(x.x), split<S>(x.y), split<S>(x.z), split<S>(x.w));
+  }
+};
+
+template <int C, int S>
+__global__ void __launch_bounds__(THREADS)
+level_gather_rows_kernel(const int32_t* __restrict__ idx, const float* __restrict__ table,
+                         LevelStarts starts, float* __restrict__ out, int64_t n_per_level,
+                         int64_t n_rows) {
+  using Vec = typename Row<C>::T;
+  const int level = blockIdx.y;
+  const int32_t* lidx = idx + (int64_t)level * n_per_level;
+  Vec* lout = reinterpret_cast<Vec*>(out) + (int64_t)level * n_per_level;
+  const Vec* rows = reinterpret_cast<const Vec*>(table);
+  const int64_t start = starts.v[level];
+  const int64_t base = (int64_t)blockIdx.x * (THREADS * UNROLL) + threadIdx.x;
+
+  int64_t row[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int64_t i = base + u * THREADS;
+    row[u] = i < n_per_level ? start + __ldcs(lidx + i) : -1;
+  }
+  Vec x[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    if (row[u] >= 0 && row[u] < n_rows) {
+      x[u] = __ldg(rows + row[u]);
+    } else {
+      x[u] = Vec{};
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int64_t i = base + u * THREADS;
+    if (i < n_per_level) __stcs(lout + i, Row<C>::template split_row<S>(x[u]));
+  }
+}
+
+// generic: one thread per (update, channel)
+template <int S>
+__global__ void __launch_bounds__(THREADS)
+level_gather_kernel(const int32_t* __restrict__ idx, const float* __restrict__ table,
+                    LevelStarts starts, float* __restrict__ out, int64_t n_per_level,
+                    int n_chan, int64_t n_rows) {
   const int level = blockIdx.y;
   const int64_t first = (int64_t)level * n_per_level;   // first update of level
   const uint32_t n_pairs = (uint32_t)(n_per_level * n_chan);
@@ -60,19 +133,22 @@ __global__ void level_gather_kernel(const int32_t* __restrict__ idx,
     const uint32_t i = j / (uint32_t)n_chan;
     const uint32_t c = j - i * (uint32_t)n_chan;
     const int64_t row = start + lidx[i];
-    float y = 0.0f;
-    if (row >= 0 && row < n_rows) {
-      const float x = table[row * n_chan + c];
-      y = bf16_rn(x);
-      if (S == 3) {
-        const float r1 = __fsub_rn(x, y);
-        const float t2 = bf16_rn(r1);
-        const float t3 = bf16_rn(__fsub_rn(r1, t2));
-        y = __fadd_rn(__fadd_rn(y, t2), t3);
-      }
-    }
-    lout[j] = y;
+    lout[j] = row >= 0 && row < n_rows ? split<S>(table[row * n_chan + c]) : 0.0f;
   }
+}
+
+static bool aligned(const void* p, size_t bytes) {
+  return (uintptr_t)p % bytes == 0;
+}
+
+template <int C, int S>
+static void launch_rows(const int32_t* idx, const float* table, const LevelStarts& starts,
+                        int n_levels, int64_t n_per_level, int64_t n_rows, float* out,
+                        cudaStream_t stream) {
+  const int64_t blocks = (n_per_level + THREADS * UNROLL - 1) / (THREADS * UNROLL);
+  const dim3 grid((unsigned)blocks, (unsigned)n_levels);
+  level_gather_rows_kernel<C, S>
+      <<<grid, THREADS, 0, stream>>>(idx, table, starts, out, n_per_level, n_rows);
 }
 
 template <int S>
@@ -85,14 +161,21 @@ static int launch(const int32_t* idx, const float* table, const int64_t* level_s
     return (int)cudaErrorInvalidValue;
   LevelStarts starts;
   for (int l = 0; l < n_levels; ++l) starts.v[l] = level_starts[l];
-  const int64_t n_pairs = n_per_level * n_chan;
-  if (n_pairs == 0) return 0;
-  const int threads = 256;
-  int64_t blocks = (n_pairs + threads - 1) / threads;
-  if (blocks > 4096) blocks = 4096;  // grid-stride beyond that
-  const dim3 grid((unsigned)blocks, (unsigned)n_levels);
-  level_gather_kernel<S><<<grid, threads, 0, stream>>>(idx, table, starts, out, n_per_level,
-                                                       n_chan, n_rows);
+  if (n_per_level == 0) return 0;
+  const size_t row_bytes = n_chan * sizeof(float);
+  const bool vec = aligned(table, row_bytes) && aligned(out, row_bytes);
+  if (vec && n_chan == 2) {
+    launch_rows<2, S>(idx, table, starts, n_levels, n_per_level, n_rows, out, stream);
+  } else if (vec && n_chan == 4) {
+    launch_rows<4, S>(idx, table, starts, n_levels, n_per_level, n_rows, out, stream);
+  } else {
+    const int64_t n_pairs = n_per_level * n_chan;
+    int64_t blocks = (n_pairs + THREADS - 1) / THREADS;
+    if (blocks > 4096) blocks = 4096;  // grid-stride beyond that
+    const dim3 grid((unsigned)blocks, (unsigned)n_levels);
+    level_gather_kernel<S><<<grid, THREADS, 0, stream>>>(idx, table, starts, out,
+                                                         n_per_level, n_chan, n_rows);
+  }
   return (int)cudaGetLastError();
 }
 

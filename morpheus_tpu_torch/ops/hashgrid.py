@@ -187,8 +187,9 @@ def _gather_levels(emb, rows: _Rows, payload_dtype):
 
 
 def _histogram(ct, rows: _Rows, payload_dtype):
-    return level_histogram(rows.local, _round(ct, payload_dtype), rows.starts,
-                           rows.n_rows)
+    # a bf16 payload is rounded by the kernel as it loads the f32 cotangent
+    return level_histogram(rows.local, ct, rows.starts, rows.n_rows,
+                           round_bf16=payload_dtype == torch.bfloat16)
 
 
 def _sorted_segment_sum(ct, rows: _Rows, payload_dtype):

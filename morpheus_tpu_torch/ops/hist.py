@@ -10,12 +10,16 @@ launch the kernel raises.
 Contract (both versions):
 
     level_histogram(idx_local (L, Np) int32, vals (L*Np, C) f32|bf16,
-                    level_starts (L ints), n_rows) -> (n_rows, C) f32
+                    level_starts (L ints), n_rows, round_bf16=False)
+        -> (n_rows, C) f32
     out[level_starts[l] + idx_local[l, i], c] += float(vals[l*Np + i, c])
 
 Unlike the TPU kernel's (C, L, t_pad) output, the result is already in the
 (T, C) table layout: the TPU caller's per-level slice-and-concatenate is
-folded in. bf16 payloads are rounded by the caller and summed in f32.
+folded in. Payloads are summed in f32; a bf16 payload is widened, and an f32
+payload with round_bf16 is rounded to bf16 first (to nearest even, as
+``.to(torch.bfloat16)``), so the caller's separate rounding pass folds into
+the kernel's load.
 """
 from __future__ import annotations
 
@@ -46,15 +50,16 @@ def _check(idx_local, vals, level_starts, n_rows):
 
 
 def level_histogram_reference(idx_local: torch.Tensor, vals: torch.Tensor,
-                              level_starts, n_rows: int) -> torch.Tensor:
-    """Plain PyTorch version: per-channel index_add_ of the (already rounded)
-    values into an f32 table."""
+                              level_starts, n_rows: int,
+                              round_bf16: bool = False) -> torch.Tensor:
+    """Plain PyTorch version: per-channel index_add_ of the values (rounded
+    to bf16 first under round_bf16) into an f32 table."""
     _check(idx_local, vals, level_starts, n_rows)
     L = idx_local.shape[0]
     starts = torch.as_tensor(list(level_starts), dtype=torch.int64,
                              device=idx_local.device).reshape(L, 1)
     rows = (idx_local.to(torch.int64) + starts).reshape(-1)
-    v = vals.to(torch.float32)
+    v = (vals.to(torch.bfloat16) if round_bf16 else vals).to(torch.float32)
     out = torch.zeros((n_rows, v.shape[1]), dtype=torch.float32,
                       device=vals.device)
     for c in range(v.shape[1]):
@@ -63,10 +68,11 @@ def level_histogram_reference(idx_local: torch.Tensor, vals: torch.Tensor,
 
 
 def level_histogram(idx_local: torch.Tensor, vals: torch.Tensor, level_starts,
-                    n_rows: int) -> torch.Tensor:
+                    n_rows: int, round_bf16: bool = False) -> torch.Tensor:
     """Kernel on CUDA tensors, plain version on CPU tensors (see module doc)."""
     if idx_local.device.type == "cpu":
-        return level_histogram_reference(idx_local, vals, level_starts, n_rows)
+        return level_histogram_reference(idx_local, vals, level_starts, n_rows,
+                                         round_bf16)
     if idx_local.device.type != "cuda":
         raise ValueError(f"level_histogram: no kernel for {idx_local.device}")
     _check(idx_local, vals, level_starts, n_rows)
@@ -84,7 +90,7 @@ def level_histogram(idx_local: torch.Tensor, vals: torch.Tensor, level_starts,
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     with torch.cuda.device(vals.device):
         rc = fn(idx_local.data_ptr(), vals.data_ptr(), ctypes.addressof(starts),
-                L, Np, C, out.data_ptr(), stream)
+                L, Np, C, n_rows, int(round_bf16), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"level_histogram kernel launch failed: CUDA error "
                            f"{rc}")

@@ -122,8 +122,8 @@ def test_field_forward_and_normal_grads_match_jax(payload, monkeypatch):
         # the same gradients with each histogram summing |cotangent|
         orig = hashgrid.level_histogram
         with monkeypatch.context() as m:
-            m.setattr(hashgrid, "level_histogram", lambda idx, vals, st, n:
-                      orig(idx, vals.abs(), st, n))
+            m.setattr(hashgrid, "level_histogram", lambda idx, vals, st, n,
+                      **kw: orig(idx, vals.abs(), st, n, **kw))
             habs = tgrads(tforward()[0])
     for path, g in jax.tree_util.tree_leaves_with_path(got):
         key = path[0].key

@@ -26,19 +26,29 @@ SPEC = HashGridSpec(input_dim=3, num_levels=6, level_dim=4, base_resolution=4,
 L, NP = 5, 777
 
 
-def _inputs(C, seed):
+def _inputs(C, seed, stream="random"):
+    """Table and index stream: uniform random rows of each level; 'one_row'
+    (every index on row 0 of its level); 'clustered' (runs of one row, of
+    random length 1-64, as a ray's neighbouring samples in one cell)."""
     rng = np.random.default_rng(seed)
     offs = SPEC.offsets
     emb = rng.standard_normal((SPEC.table_size, C)).astype(np.float32)
-    idx = np.stack([rng.integers(0, offs[l + 1] - offs[l], NP)
-                    for l in range(L)]).astype(np.int32)
+    sizes = [offs[l + 1] - offs[l] for l in range(L)]
+    idx = np.stack([rng.integers(0, s, NP) for s in sizes]).astype(np.int32)
+    if stream == "one_row":
+        idx = np.zeros_like(idx)
+    elif stream == "clustered":
+        for l in range(L):
+            ends = np.cumsum(rng.integers(1, 65, NP))
+            idx[l] = idx[l][np.searchsorted(ends, np.arange(NP), side="right")]
     return emb, idx, list(offs[:L])
 
 
+@pytest.mark.parametrize("stream", ["random", "one_row", "clustered"])
 @pytest.mark.parametrize("S", [1, 3])
 @pytest.mark.parametrize("C", [2, 4])
-def test_level_gather_matches_pallas_bitwise(S, C):
-    emb, idx, starts = _inputs(C, seed=S * 10 + C)
+def test_level_gather_matches_pallas_bitwise(S, C, stream):
+    emb, idx, starts = _inputs(C, seed=S * 10 + C, stream=stream)
     offs = SPEC.offsets
     t_pad = max(offs[l + 1] - offs[l] for l in range(L))
     tabs = gather_pallas.pack_level_table(jnp.asarray(emb), offs, L, t_pad, S)

@@ -45,30 +45,50 @@ GRIDS = {
 }
 
 
-@pytest.mark.parametrize("C", [2, 4, 32])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("stream", ["random", "one_slot"])
+def _clustered(rng, L, Np, size):
+    """Runs of one row, of random length 1-64, each run's row uniform random
+    (as a ray's neighbouring samples in one cell of a coarse level)."""
+    out = []
+    for _ in range(L):
+        ends = np.cumsum(rng.integers(1, 65, Np))
+        run = np.searchsorted(ends, np.arange(Np), side="right")
+        out.append(rng.integers(0, size, Np)[run])
+    return np.stack(out).astype(np.int32)
+
+
+# C=2 and 4 (hashed levels), 16 and 32 (the packed dense prefix) are the
+# kernel's vector widths; 8 takes its generic path
+@pytest.mark.parametrize("C", [2, 4, 8, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float32_round"])
+@pytest.mark.parametrize("stream", ["random", "one_slot", "clustered"])
 def test_level_histogram_matches_pallas(C, dtype, stream):
+    """float32_round: an f32 payload with round_bf16, against JAX on the
+    bf16-rounded payload."""
     rng = np.random.default_rng(C)
     L, Np, t_pad = 3, 1500, 256
     if stream == "one_slot":
         idx = np.full((L, Np), 7, np.int32)
+    elif stream == "clustered":
+        idx = _clustered(rng, L, Np, t_pad)
     else:
         idx = rng.integers(0, t_pad, (L, Np)).astype(np.int32)
     vals = rng.standard_normal((L * Np, C)).astype(np.float32)
-    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
     want = hist_pallas.level_histogram(
         jnp.asarray(idx), tuple(jnp.asarray(vals[:, c].reshape(L, Np), jd)
                                 for c in range(C)), t_pad, interpret=True)
-    tv = torch.as_tensor(vals).to(getattr(torch, dtype))
+    rnd = dtype == "float32_round"
+    tv = torch.as_tensor(vals).to(torch.bfloat16 if dtype == "bfloat16"
+                                  else torch.float32)
     before = hist.level_histogram.launches
     got = hist.level_histogram(torch.as_tensor(idx), tv,
-                               [l * t_pad for l in range(L)], L * t_pad)
+                               [l * t_pad for l in range(L)], L * t_pad,
+                               round_bf16=rnd)
     # a CPU tensor takes the plain version: no kernel launch is counted
     assert hist.level_histogram.launches == before
     habs = hist.level_histogram_reference(
         torch.as_tensor(idx), tv.abs(), [l * t_pad for l in range(L)],
-        L * t_pad)
+        L * t_pad, round_bf16=rnd)
     to_jax = lambda t: t.reshape(L, t_pad, C).permute(2, 0, 1).numpy()
     err = np.abs(to_jax(got) - np.asarray(want))
     assert (err <= 1e-5 * np.abs(np.asarray(want)) + 1e-6
@@ -129,8 +149,8 @@ def _abs_hist_grad(monkeypatch, fn, e):
     sum of |cotangent| into it."""
     hist_fn, segsum_fn = hashgrid.level_histogram, hashgrid.segment_sum_sorted
     with monkeypatch.context() as m:
-        m.setattr(hashgrid, "level_histogram", lambda idx, vals, starts, n:
-                  hist_fn(idx, vals.abs(), starts, n))
+        m.setattr(hashgrid, "level_histogram", lambda idx, vals, starts, n,
+                  **kw: hist_fn(idx, vals.abs(), starts, n, **kw))
         m.setattr(hashgrid, "segment_sum_sorted", lambda keys, vals, size:
                   segsum_fn(keys, vals.abs(), size))
         return torch.autograd.grad(fn(), e)[0].numpy()

@@ -136,8 +136,8 @@ def _abs_hist_grads(monkeypatch, loss_fn, field):
     table slot, the sum of |cotangent| into it."""
     hist_fn, segsum_fn = hashgrid.level_histogram, hashgrid.segment_sum_sorted
     with monkeypatch.context() as m:
-        m.setattr(hashgrid, "level_histogram", lambda idx, vals, starts, n:
-                  hist_fn(idx, vals.abs(), starts, n))
+        m.setattr(hashgrid, "level_histogram", lambda idx, vals, starts, n,
+                  **kw: hist_fn(idx, vals.abs(), starts, n, **kw))
         m.setattr(hashgrid, "segment_sum_sorted", lambda keys, vals, size:
                   segsum_fn(keys, vals.abs(), size))
         grads = torch.autograd.grad(loss_fn(), [getattr(field, g)
