@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero:
   3. hold each kernel against its plain PyTorch version on the card, on
      synthetic streams at the shapes the real-view training step gives it
      under its vjp_mode (`hist`, `segsum`, `gather` lines; the sort that
-     precedes the segment sum has its own `sort` line). Each line times the
+     precedes the segment sum has its own `sort` line, with the route's
+     sort and segment sum together as route_ms; each segment sum is also
+     checked bit for bit against a second call). Each line times the
      kernel, the plain version and one PyTorch library call computing the
      same function: `ms`, `plain_ms` and `library_ms` are device time per
      call (device_ms: k calls back to back, the host kept out), `call_ms`
@@ -306,78 +308,132 @@ def check_hist(device):
 def segsum_cases(device):
     """The segment_sum_sorted calls of one sort_pallas_rows step at configs/
     synthetic_bench.yaml: 16 levels x 8 corners x 40,960 sites = 5,242,880
-    sorted rows of the 419,640-row table, fused sdf+color payloads (C=4) and
-    sdf only (C=2); and one run over the whole stream on the last slot.
-    Also the unsorted rows, for the sort's own time."""
+    rows of the 419,640-row table. The JAX contract (keys sorted, payload in
+    their order): fused sdf+color payloads (C=4) and sdf only (C=2), one run
+    over the whole stream on the last slot, and a stream whose keys fall
+    partly below 0 and past the table. The route form (keys and order from
+    the stable sort of the unsorted rows, the f32 payload in the rows' own
+    order, read through the order): C=4 and C=2. Also the unsorted rows, for
+    the sort's own time. (name, keys, f32 payload, table rows, order)."""
     import torch
     offs, sizes, _ = bench_grid()
     g = torch.Generator(device=device)
     g.manual_seed(1)
     local = level_stream(device, g, sizes, 8 * 40960)
     rows = global_rows(local, offs[:16]).to(torch.int32)
-    keys = torch.sort(rows, stable=True).values
+    keys, order = torch.sort(rows, stable=True)
     N, T = rows.numel(), offs[16]
     cases = [(f"sorted_c{C}", keys,
-              torch.randn((N, C), generator=g, device=device), T)
+              torch.randn((N, C), generator=g, device=device), T, None)
              for C in (4, 2)]
     cases.append(("one_run", torch.full((N,), T - 1, dtype=torch.int32,
                                         device=device),
-                  torch.randn((N, 4), generator=g, device=device), T))
+                  torch.randn((N, 4), generator=g, device=device), T, None))
+    # first half shifted down, second half up: still sorted, an eighth of
+    # the table's width outside it at each end
+    shift = torch.where(torch.arange(N, device=device) < N // 2, -(T // 8),
+                        T // 8).to(torch.int32)
+    cases.append(("out_of_range", keys + shift,
+                  torch.randn((N, 4), generator=g, device=device), T, None))
+    cases += [(f"route_c{C}", keys,
+               torch.randn((N, C), generator=g, device=device), T, order)
+              for C in (4, 2)]
     return cases, rows
 
 
-def segsum_line(case, keys, vals, T) -> dict:
-    """Phase 3: one segment_sum_sorted call against
-    segment_sum_sorted_reference, then timed. Tolerance: |kernel - plain| <=
-    1e-5 * (sum of |payload| into the slot) + 1e-6 - float32 sums in another
-    order. The library call is one index_add_ of the payload cast to f32
-    into a fresh f32 table."""
+def segsum_line(case, keys, vals, T, kw) -> dict:
+    """Phase 3: one segment_sum_sorted call (keyword arguments kw: order,
+    round_bf16) against segment_sum_sorted_reference, and against a second
+    call bit for bit (the kernel adds in an order fixed by the shapes), then
+    timed. Tolerance: |kernel - plain| <= 1e-5 * (sum of |payload| into the
+    slot) + 1e-6 - float32 sums in another order. The library call is one
+    index_add_ of the payload, permuted by order and rounded where the call
+    asks it, cast to f32, into a fresh f32 table (none where keys fall
+    outside the table: index_add_ does not drop them). In the route form,
+    permute_ms is the device time of the cast and permutation that the
+    route ran before the kernel read through the order."""
     import torch
     from morpheus_tpu_torch.ops import segsum
-    got = segsum.segment_sum_sorted(keys, vals, T)
-    ref = segsum.segment_sum_sorted_reference(keys, vals, T)
-    habs = segsum.segment_sum_sorted_reference(keys, vals.abs(), T)
+    got = segsum.segment_sum_sorted(keys, vals, T, **kw)
+    again = segsum.segment_sum_sorted(keys, vals, T, **kw)
+    if not torch.equal(got, again):
+        raise AssertionError(f"segment_sum_sorted {case}: two calls differ "
+                             f"in {int((got != again).sum())} values")
+    ref = segsum.segment_sum_sorted_reference(keys, vals, T, **kw)
+    habs = segsum.segment_sum_sorted_reference(keys, vals.abs(), T, **kw)
     err = (got - ref).abs()
     bad = err > 1e-5 * habs + 1e-6
     if bool(bad.any()):
-        raise AssertionError(f"segment_sum_sorted {case} {vals.dtype}: "
+        raise AssertionError(f"segment_sum_sorted {case} {vals.dtype} {kw}: "
                              f"{int(bad.sum())} slots off, max err "
                              f"{float(err.max())}")
     N, C = vals.shape
     keys64 = keys.long()
-    row = {"case": case, "dtype": str(vals.dtype).split(".")[-1], "N": N,
-           "C": C, "rows": T, "max_abs_err": float(err.max())}
+    order = kw.get("order")
+    rnd = bool(kw.get("round_bf16", False))
+
+    def permuted():
+        v = vals.to(torch.bfloat16) if rnd else vals
+        return v if order is None else v.index_select(0, order)
+
+    def library():
+        return torch.zeros((T, C), device=vals.device).index_add_(
+            0, keys64, permuted().float())
+
+    in_table = bool(((keys >= 0) & (keys < T)).all())
+    row = {"case": case, "dtype": str(vals.dtype).split(".")[-1],
+           "order": order is not None, "round_bf16": rnd, "N": N, "C": C,
+           "rows": T, "max_abs_err": float(err.max())}
     row.update(timings(
-        lambda: segsum.segment_sum_sorted(keys, vals, T),
-        lambda: segsum.segment_sum_sorted_reference(keys, vals, T),
-        lambda: torch.zeros((T, C), device=vals.device).index_add_(
-            0, keys64, vals.float())))
-    row.update(bound(N * 4 + N * C * vals.element_size() + T * C * 4, N * C))
+        lambda: segsum.segment_sum_sorted(keys, vals, T, **kw),
+        lambda: segsum.segment_sum_sorted_reference(keys, vals, T, **kw),
+        library if in_table else None))
+    if order is not None:
+        row["permute_ms"] = device_ms(permuted)[0]
+    row.update(bound(N * 4 + (0 if order is None else N * 8)
+                     + N * C * vals.element_size() + T * C * 4, N * C))
     log("segsum", json.dumps(row))
     return row
 
 
 def check_segsum(device):
-    """Phase 3: the synthetic segment_sum_sorted cases, both payload types,
-    and the sort in front of the kernel."""
+    """Phase 3: the synthetic segment_sum_sorted cases - the JAX contract
+    with f32 and bf16 payloads, the route form with an f32 payload rounded
+    to bf16 in the load and not - and the sort in front of the kernel."""
     import torch
     from morpheus_tpu_torch.ops import segsum
     rows_out = []
     cases, rows = segsum_cases(device)
-    for name, keys, vals32, T in cases:
-        for dt in (torch.float32, torch.bfloat16):
-            rows_out.append(segsum_line(name, keys, vals32.to(dt), T))
+    for name, keys, vals32, T, order in cases:
+        if order is None:
+            forms = ((vals32, {}), (vals32.to(torch.bfloat16), {}))
+        else:
+            forms = ((vals32, {"order": order, "round_bf16": r})
+                     for r in (True, False))
+        for vals, kw in forms:
+            rows_out.append(segsum_line(name, keys, vals, T, kw))
     # the sort in front of the kernel (ops/hashgrid.py _sorted_segment_sum):
-    # stable sort of the rows, then the bf16 payload permuted by its order
-    payload = torch.randn((rows.numel(), 4), device=device).to(torch.bfloat16)
+    # stable sort of the rows alone; with the bf16 C=4 payload permuted by
+    # its order (the permutation the route made before the kernel read
+    # through order); and the route: the sort, then the kernel reading the
+    # f32 cotangent through order
+    T = cases[0][3]
+    ct = torch.randn((rows.numel(), 4), device=device)
+    payload = ct.to(torch.bfloat16)
 
     def sort_and_permute():
         order = torch.sort(rows, stable=True).indices
         return payload.index_select(0, order)
 
+    def route():
+        keys, order = torch.sort(rows, stable=True)
+        return segsum.segment_sum_sorted(keys, ct, T, order=order,
+                                         round_bf16=True)
+
     sort_row = {"N": rows.numel(), "C": 4, "dtype": "bfloat16",
                 "sort_ms": device_ms(lambda: torch.sort(rows, stable=True))[0],
-                "sort_and_permute_ms": device_ms(sort_and_permute)[0]}
+                "sort_and_permute_ms": device_ms(sort_and_permute)[0],
+                "route_ms": device_ms(route)[0]}
     log("sort", json.dumps(sort_row))
     n0 = segsum.segment_sum_sorted.launches
     empty = segsum.segment_sum_sorted(
@@ -512,7 +568,8 @@ def step_lines(mode, calls) -> dict:
     out = {k: [] for k in CAPTURED}
     line = {"level_histogram": lambda name, a, kw: hist_line(name, *a, kw),
             "level_gather": lambda name, a, kw: gather_line(name, *a),
-            "segment_sum_sorted": lambda name, a, kw: segsum_line(name, *a)}
+            "segment_sum_sorted": lambda name, a, kw: segsum_line(name, *a,
+                                                                  kw)}
     for i, c in enumerate(calls):
         row = line[c["kernel"]](f"step_{mode}_{i}", c["args"], c["kw"])
         row["phase"] = c["phase"]
@@ -679,7 +736,9 @@ def step_trace(trainer, n: int = 5):
         "device_busy_ms_per_step": busy_ms / n,
         "device_idle_share": 1.0 - busy_ms / window_ms}
     for label in (*wrappers(), "sort"):
-        hits = [v for k, v in by_name.items() if label in k.lower()]
+        # the sorts: kernels named for sorting, not segment_sum_sorted's
+        hits = [v for k, v in by_name.items() if label in k.lower()
+                and (label != "sort" or "segment_sum" not in k)]
         result[f"{label}_launches_per_step"] = sum(c for c, _ in hits) / n
         result[f"{label}_ms_per_step"] = sum(ms for _, ms in hits) / n
         launches = sum(c for c, _ in hits)

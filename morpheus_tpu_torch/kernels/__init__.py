@@ -21,7 +21,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # argtypes of each kernel's C entry points (pointers and the stream as
-# c_void_p, so ctypes never truncates them to 32 bits)
+# c_void_p, so ctypes never truncates them to 32 bits); an entry point that
+# returns something other than a CUDA error code gives (argtypes, restype)
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "level_histogram": {
@@ -29,8 +30,11 @@ SIGNATURES = {
         "level_histogram_bf16": [_P, _P, _P, _I, _I64, _I, _I64, _I, _P, _P],
     },
     "segment_sum_sorted": {
-        "segment_sum_sorted_f32": [_P, _P, _I64, _I, _I64, _P, _P],
-        "segment_sum_sorted_bf16": [_P, _P, _I64, _I, _I64, _P, _P],
+        "segment_sum_sorted_f32": [_P, _P, _P, _I64, _I, _I64, _I, _P, _P,
+                                   _P],
+        "segment_sum_sorted_bf16": [_P, _P, _P, _I64, _I, _I64, _I, _P, _P,
+                                    _P],
+        "segment_sum_sorted_scratch_bytes": ([_I64, _I, _I64], _I64),
     },
     "level_gather": {
         "level_gather_s1": [_P, _P, _P, _I, _I64, _I, _I64, _P, _P],
@@ -101,8 +105,9 @@ def load(name: str) -> ctypes.CDLL:
     if not os.path.exists(path):
         build_all([name])
     lib = ctypes.CDLL(path)
-    for fn, argtypes in SIGNATURES[name].items():
+    for fn, sig in SIGNATURES[name].items():
+        argtypes, restype = sig if isinstance(sig, tuple) else (sig, _I)
         getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).restype = restype
     _loaded[name] = lib
     return lib

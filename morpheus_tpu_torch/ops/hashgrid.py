@@ -172,10 +172,6 @@ class _Rows:
         return torch.sort(self.rows.to(torch.int32), stable=True)
 
 
-def _round(ct: torch.Tensor, payload_dtype) -> torch.Tensor:
-    return ct if payload_dtype is None else ct.to(payload_dtype)
-
-
 def _gather_rows(emb, rows: _Rows, payload_dtype):
     return emb.index_select(0, rows.rows)
 
@@ -193,10 +189,11 @@ def _histogram(ct, rows: _Rows, payload_dtype):
 
 
 def _sorted_segment_sum(ct, rows: _Rows, payload_dtype):
-    # the payload is rounded before the sort, as the JAX package does
+    # the kernel reads the f32 cotangent through the sort's order and rounds
+    # a bf16 payload as it loads it (the JAX package rounds before its sort)
     keys, order = rows.sorted
-    vals = _round(ct, payload_dtype).index_select(0, order)
-    return segment_sum_sorted(keys, vals, rows.n_rows)
+    return segment_sum_sorted(keys, ct, rows.n_rows, order=order,
+                              round_bf16=payload_dtype == torch.bfloat16)
 
 
 # vjp_mode -> (gather, accumulate), each the other's transpose

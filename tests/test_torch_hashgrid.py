@@ -151,8 +151,8 @@ def _abs_hist_grad(monkeypatch, fn, e):
     with monkeypatch.context() as m:
         m.setattr(hashgrid, "level_histogram", lambda idx, vals, starts, n,
                   **kw: hist_fn(idx, vals.abs(), starts, n, **kw))
-        m.setattr(hashgrid, "segment_sum_sorted", lambda keys, vals, size:
-                  segsum_fn(keys, vals.abs(), size))
+        m.setattr(hashgrid, "segment_sum_sorted", lambda keys, vals, size,
+                  **kw: segsum_fn(keys, vals.abs(), size, **kw))
         return torch.autograd.grad(fn(), e)[0].numpy()
 
 

@@ -138,8 +138,8 @@ def _abs_hist_grads(monkeypatch, loss_fn, field):
     with monkeypatch.context() as m:
         m.setattr(hashgrid, "level_histogram", lambda idx, vals, starts, n,
                   **kw: hist_fn(idx, vals.abs(), starts, n, **kw))
-        m.setattr(hashgrid, "segment_sum_sorted", lambda keys, vals, size:
-                  segsum_fn(keys, vals.abs(), size))
+        m.setattr(hashgrid, "segment_sum_sorted", lambda keys, vals, size,
+                  **kw: segsum_fn(keys, vals.abs(), size, **kw))
         grads = torch.autograd.grad(loss_fn(), [getattr(field, g)
                                                 for g in GRIDS])
     return {g: h.numpy() for g, h in zip(GRIDS, grads)}
