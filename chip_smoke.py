@@ -5,6 +5,8 @@
 
     python3 chip_smoke.py --kernels-only     # phases 1-4, then stop
 
+    python3 chip_smoke.py --cli-only         # phases 1-2 and 9
+
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every hand-written kernel from the sources in this checkout, one
@@ -38,7 +40,17 @@ Phases, in order; any failure exits non-zero:
      occupancy refreshes run through the mode too), then a 5-step trace;
   8. the main path at a tiny size on the card against the same run on the
      CPU (same parameters, same random draws), under each of the three
-     modes.
+     modes;
+  9. the trainer CLI (python -m morpheus_tpu_torch) at the widths of
+     configs/synthetic_bench.yaml with its frames, epochs and diagnostic
+     cadence cut (CLI_CUTS): first one canonical mesh export under
+     tpu.vjp_mode mxu_rows, whose first level_gather call becomes the
+     kernel line mesh_mxu_rows_0; then 2 epochs of the CLI with the default
+     vjp_mode, and the same command with `train --n_epochs 3`, which
+     resumes. The artifacts of morpheus.py's epoch loop are checked (meshes,
+     test videos, mesh videos, checkpoints, the eval worker's metric_3d.txt
+     rows) and the seconds of each part printed (`cli:` line); each CLI run
+     reports its kernel launches, counted from 0 in its own process.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -46,9 +58,12 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -824,6 +839,216 @@ def small_reference(device, mode: str):
         f"param diff {worst} (limit {2 * 4 * lr})")
 
 
+# the CLI phase's cuts of configs/synthetic_bench.yaml: frames, epochs and
+# the diagnostics' cadence; every width stays the config's
+CLI_CUTS = {"data": {"synthetic_frames": 4},
+            "train": {"n_epochs": 2, "n_iters": 1},
+            "exp": {"test_interval": 2, "mesh_interval": 1,
+                    "mesh_all_interval": 2, "mesh_all_eval_interval": 2}}
+
+
+def cli_config(workdir: str) -> dict:
+    """configs/synthetic_bench.yaml with CLI_CUTS, its workspace under
+    workdir: the raw YAML dict the CLI phase writes out."""
+    import yaml
+    with open(os.path.join(HERE, "configs", "synthetic_bench.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    for section, kv in CLI_CUTS.items():
+        cfg[section].update(kv)
+    cfg["exp"].update(output=os.path.join(workdir, "exp"), exp_name="cli")
+    return cfg
+
+
+def capture_mesh_gather(field, path: str, resolution: int = 128) -> tuple:
+    """One export_mesh of `field`'s canonical mesh with every kernel's
+    launches counted from 0, and its first level_gather call recorded (the
+    first chunk of the dense SDF query; a recorder wraps the name in
+    ops/hashgrid.py, as capture_streams does, and is removed afterwards).
+    Returns (recorded call's args, launches, export info)."""
+    import torch
+    from morpheus_tpu_torch import mesh_export
+    from morpheus_tpu_torch.ops import hashgrid
+    first, real = [], hashgrid.level_gather
+
+    def record(*args):
+        if not first:
+            first.append(tuple(a.detach().clone()
+                               if isinstance(a, torch.Tensor) else a
+                               for a in args))
+        return real(*args)
+
+    hashgrid.level_gather = record
+    try:
+        reset_counts()
+        info = mesh_export.export_mesh(field, path, resolution=resolution,
+                                       cano=True)[2]
+        launches = read_counts()
+    finally:
+        hashgrid.level_gather = real
+    return (first[0] if first else None), launches, info
+
+
+def check_mesh_gather(device, workdir: str) -> dict:
+    """The CLI phase's mesh export under tpu.vjp_mode mxu_rows, where the
+    dense SDF query's hash-grid forward is level_gather: a 128^3 canonical
+    mesh of a fresh Trainer at configs/synthetic_bench.yaml width (the
+    frames cut as in CLI_CUTS), its first chunk's call held against the
+    plain twin and timed (line mesh_mxu_rows_0)."""
+    from morpheus_tpu_torch.config import merge_defaults
+    from morpheus_tpu_torch.data.dataset import load_synthetic
+    from morpheus_tpu_torch.train.trainer import Trainer
+    cfg = merge_defaults(cli_config(workdir))
+    cfg["tpu"]["vjp_mode"] = "mxu_rows"
+    trainer = Trainer(cfg, load_synthetic(cfg), device=device)
+    args, launches, info = capture_mesh_gather(
+        trainer.field, os.path.join(workdir, "mesh_mxu_rows.ply"))
+    log("mesh export mxu_rows:", json.dumps({**info, "launches": launches}))
+    if args is None or launches["level_gather"] < 8 \
+            or launches["level_histogram"] or launches["segment_sum_sorted"]:
+        raise AssertionError(f"mesh export under mxu_rows: launches "
+                             f"{launches}")
+    if info["backend"] != "native" or not info["faces"]:
+        raise AssertionError(f"mesh export under mxu_rows: {info}")
+    row = gather_line("mesh_mxu_rows_0", *args)
+    row["launches"] = launches["level_gather"]
+    return row
+
+
+def _json_lines(text: str, tag: str) -> list:
+    return [json.loads(line.split(tag + " ", 1)[1])
+            for line in text.splitlines() if tag + " {" in line]
+
+
+def _run_cli(cfg_path: str, extra: list, out_path: str) -> str:
+    """python -m morpheus_tpu_torch on the card with the eval drain of the
+    CLI phase; its output (also kept in out_path)."""
+    env = dict(os.environ, MORPHEUS_EVAL_DRAIN_S="600")
+    cmd = [sys.executable, "-m", "morpheus_tpu_torch", "--config",
+           cfg_path] + extra
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        rc = subprocess.run(cmd, cwd=HERE, env=env, stdout=out,
+                            stderr=subprocess.STDOUT, timeout=900).returncode
+    with open(out_path) as f:
+        text = f.read()
+    log(f"cli: {' '.join(cmd[1:])} exited {rc} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        raise AssertionError(f"the CLI exited {rc}:\n{text[-4000:]}")
+    return text
+
+
+def cli_phase(workdir: str) -> dict:
+    """Phase 9: the trainer CLI (python -m morpheus_tpu_torch) on the card
+    at configs/synthetic_bench.yaml width with CLI_CUTS: 2 epochs, then the
+    same command with `train --n_epochs 3`, which resumes from epoch 2's
+    checkpoint. Checks the artifacts of morpheus.py's epoch loop, the
+    meshes, the real-view video, finite losses, the native marcher and the
+    kernel launches each run reports; returns the seconds of each part."""
+    import glob
+
+    import cv2
+    import numpy as np
+    import yaml
+    from morpheus_tpu_torch.ops import meshing
+    cfg = cli_config(workdir)
+    cfg_path = os.path.join(workdir, "synthetic_bench_cli.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    log("cli phase: configs/synthetic_bench.yaml cut to", json.dumps(
+        CLI_CUTS), "(then train --n_epochs 3)")
+    ws = os.path.join(cfg["exp"]["output"], cfg["exp"]["exp_name"])
+    runs = [_run_cli(cfg_path, extra, os.path.join(workdir, f"cli_{i}.log"))
+            for i, extra in enumerate(([], ["train", "--n_epochs", "3"]))]
+
+    resumed = f"Resumed from {ws}/models/model_ep_0002.pkl (epoch 2)"
+    if "Resumed" in runs[0] or resumed not in runs[1]:
+        raise AssertionError("the second CLI run did not resume from epoch 2")
+    stats = [_json_lines(r, "epoch-stats") for r in runs]
+    if [[s["epoch"] for s in st] for st in stats] != [[1, 2], [3]]:
+        raise AssertionError(f"epochs trained: {stats}")
+    losses = [s["loss"] for st in stats for s in st]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite CLI losses {losses}")
+    exports = [e for r in runs for e in _json_lines(r, "mesh-export")]
+    if any(e["backend"] != "native" for e in exports):
+        raise AssertionError("the native marcher did not run")
+    launches = [_json_lines(r, "kernel-launches")[0] for r in runs]
+    for n in launches:     # the default vjp_mode: hist_rows
+        if n["level_histogram"] < 10 or n["level_gather"] \
+                or n["segment_sum_sorted"]:
+            raise AssertionError(f"CLI kernel launches {launches}")
+
+    want = (["mesh/init.ply"] + [f"mesh/mesh_000{e}.ply" for e in (1, 2, 3)]
+            + [f"mesh_all/mesh_000{e}_000{i}.ply" for e in (2, 3)
+               for i in range(4)]
+            + [f"results/test{n}_ep0002_{k}.mp4"
+               for n in ("", "_180", "_cano", "_360", "_real")
+               for k in ("rgb", "depth")]
+            + [f"videos/video_{v}_000{e}.mp4" for v in ("real", "360")
+               for e in (2, 3)]
+            + [f"models/model_ep_000{e}.pkl" for e in (2, 3)]
+            + ["metric_3d.txt"])
+    missing = [p for p in want if not os.path.exists(os.path.join(ws, p))]
+    if missing:
+        raise AssertionError(f"CLI artifacts missing: {missing}")
+    with open(os.path.join(ws, "metric_3d.txt")) as f:
+        rows = [line.split(":")[0] for line in f if line.startswith("Ep_")]
+    if sorted(rows) != ["Ep_2", "Ep_3"]:
+        raise AssertionError(f"metric_3d.txt rows {rows}")
+    if glob.glob(os.path.join(ws, ".eval_inflight_*")):
+        raise AssertionError("an eval worker is still running")
+    radii = {}
+    for p in want:
+        if p.endswith(".ply"):
+            v, faces, _ = meshing.load_ply(os.path.join(ws, p))
+            radii[p] = float(np.median(np.linalg.norm(v, axis=-1)))
+            if not len(faces) or not radii[p] < 1.0:
+                raise AssertionError(f"{p}: {len(faces)} faces, median "
+                                     f"vertex radius {radii[p]}")
+    cap = cv2.VideoCapture(os.path.join(ws, "results",
+                                        "test_real_ep0002_rgb.mp4"))
+    ok, frame = cap.read()
+    cap.release()
+    if not ok:
+        raise AssertionError("test_real_ep0002_rgb.mp4 did not decode")
+    h, w = frame.shape[:2]
+    centre = float(frame[h // 2, w // 2].mean())
+    corner = float(frame[2, 2].mean())
+    if not centre < corner:
+        raise AssertionError(f"test_real frame 0: centre {centre} is not "
+                             f"darker than its corner {corner}")
+
+    with open(os.path.join(ws, "eval_worker.log")) as f:
+        evals = [float(s) for s in re.findall(
+            r"epoch \d+: done in ([0-9.]+) s", f.read())]
+    by_res = {}
+    for e in exports:
+        by_res.setdefault(e["resolution"], []).append(
+            {k: e[k] for k in ("query_s", "march_s", "color_s", "ply_s")})
+    out = {"frames": cfg["data"]["synthetic_frames"],
+           "size": [cfg["data"]["synthetic_res"]] * 2,
+           "rays": cfg["train"]["real_ray_num"],
+           "epoch_train_s": [s["train_s"] for st in stats for s in st],
+           "losses": losses,
+           "mesh_export_s": {
+               f"{r}^3": {k: statistics.median(x[k] for x in v)
+                          for k in v[0]} | {"exports": len(v)}
+               for r, v in sorted(by_res.items())},
+           "test_video_s": [x for st in stats for s in st
+                            for x in s.get("test_video_s", [])],
+           "mesh_video_s": [x for st in stats for s in st
+                            for x in s.get("mesh_video_s", [])],
+           "eval_worker_epoch_s": evals,
+           "kernel_launches": launches,
+           "median_vertex_radius": [min(radii.values()),
+                                    max(radii.values())],
+           "test_real_centre_corner": [centre, corner],
+           "card": card_line()}
+    log("cli:", json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -843,6 +1068,21 @@ def main() -> int:
     for name, text in kernels.build_logs.items():
         log(f"--- nvcc {name}\n{text.strip()}")
 
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        return run(device, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def run(device, card: str, workdir: str) -> int:
+    import torch
+    if "--cli-only" in sys.argv[1:]:
+        check_mesh_gather(device, workdir)
+        cli_phase(workdir)
+        log("cli only: the mesh export's level_gather and the CLI phase "
+            "passed")
+        return 0
     rows = {"level_histogram": check_hist(device),
             "level_gather": check_gather(device)}
     rows["segment_sum_sorted"], sort_row = check_segsum(device)
@@ -877,6 +1117,9 @@ def main() -> int:
     log("sort of sort_pallas_rows:", json.dumps(sort_row))
     log("step ms by mode:", json.dumps({m: r["real_step_ms"]
                                         for m, r in main.items()}))
+    mesh_row = check_mesh_gather(device, workdir)
+    rows["level_gather"].append(mesh_row)
+    cli = cli_phase(workdir)
 
     def entry(name, replaces, mode):
         # the kernel's numbers at its largest captured call of a step under
@@ -896,7 +1139,8 @@ def main() -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "device_ms_per_launch": {
                     m: main[m]["trace"][f"{name}_ms_per_launch"]
-                    for m, ks in PATH_KERNELS.items() if name in ks}}
+                    for m, ks in PATH_KERNELS.items() if name in ks},
+                "cli_launches": [n[name] for n in cli["kernel_launches"]]}
 
     kernels_line = {"kernels": [
         entry("level_histogram", "morpheus_tpu/ops/hist_pallas.py:105",
@@ -905,6 +1149,11 @@ def main() -> int:
               "sort_pallas_rows"),
         entry("level_gather", "morpheus_tpu/ops/gather_pallas.py:79",
               "mxu_rows")]}
+    # the mesh export's call under mxu_rows (phase 9)
+    kernels_line["kernels"][2]["mesh_case"] = {
+        k: mesh_row[k] for k in ("case", "launches", "L", "Np", "C", "S",
+                                 "max_abs_err", "ms", "call_ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}
     log(card)
     log(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

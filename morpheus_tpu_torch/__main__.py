@@ -1,0 +1,295 @@
+"""Trainer CLI of the port, with the interface of the JAX package's
+morpheus.py (reference: morpheus.py:1522-1554):
+
+    python -m morpheus_tpu_torch --config configs/snoopy.yaml \\
+        [--device cuda|cpu] [section --key value ...]
+
+Orchestrates per-scene optimisation with periodic diagnostics, as
+morpheus.py:82-330 does: init mesh, test videos every test_interval,
+canonical mesh every mesh_interval, per-frame meshes, mesh videos and the
+detached 3-D metric worker every mesh_all_interval, checkpoints, and resume
+from the newest checkpoint. Training, mesh queries and video renders run on
+`--device` (the card unless told otherwise); iso-surface extraction, mesh
+videos and the metric worker are host code.
+
+Besides the reference's log, every epoch logs one `epoch-stats {json}` line
+(the loss and the seconds of each part of the epoch), every mesh export one
+`mesh-export {json}` line, and the run ends with `kernel-launches {json}`,
+the launches of each hand-written kernel in this process.
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import re
+import time
+
+import torch
+
+# mesh resolutions: the canonical meshes, and the per-frame meshes of
+# mesh_all, finer at the final epoch (morpheus.py:202,298,305)
+MESH_RES = 128
+MESH_ALL_RES = 128
+MESH_ALL_FINAL_RES = 256
+
+
+def _apply_degrade(config, level: int) -> list[str]:
+    """Degraded-mode overrides for the crash-resume supervisor
+    (scripts/run_full_budget.sh sets MORPHEUS_DEGRADE after N consecutive
+    no-progress failures). Each level trades throughput — and at level 2,
+    virtual-view resolution — for device-memory headroom; every override is
+    returned for the log so a degraded run is never mistaken for a clean
+    one."""
+    notes = []
+    if level >= 1:
+        config["tpu"]["chain_steps"] = False
+        notes.append("tpu.chain_steps=false (single-step dispatch)")
+        if config["guidance"].get("compute_dtype") != "bfloat16":
+            config["guidance"]["compute_dtype"] = "bfloat16"
+            notes.append("guidance.compute_dtype=bfloat16")
+    if level >= 2:
+        s = min(0.35, float(config["data"].get("novel_view_scale_final", 0.5)))
+        config["data"]["novel_view_scale_final"] = s
+        notes.append(f"data.novel_view_scale_final={s} "
+                     "(SEMANTICS CHANGE: smaller late virtual views)")
+    return notes
+
+
+def _mem_note(device: torch.device) -> str:
+    """Device-memory snapshot for the epoch log line (nothing on the
+    CPU)."""
+    if device.type != "cuda":
+        return ""
+    gib = 1 << 30
+    total = torch.cuda.get_device_properties(device).total_memory
+    return (f" mem={torch.cuda.memory_allocated(device) / gib:.2f}"
+            f"/{total / gib:.2f}GiB"
+            f" peak={torch.cuda.max_memory_allocated(device) / gib:.2f}")
+
+
+def _check_unported(config, log) -> None:
+    """Guidance and the CLIP eval are not ported: a configuration that
+    asks for them raises; a Zero123 checkpoint path that does not exist
+    trains recon-only with the reference's warning (morpheus.py:123-184)."""
+    gd = config["guidance"]
+    ckpt = gd.get("zero123_ckpt")
+    if gd["model"] and ckpt:
+        if ckpt in ("<random>", "<random-tiny>") or os.path.exists(ckpt):
+            raise NotImplementedError(
+                f"guidance.zero123_ckpt {ckpt!r}: Zero123 SDS guidance is "
+                "not ported yet (ROADMAP.md queue A, items A9-A10)")
+        log(f"[warn] zero123 ckpt not found at {ckpt}; "
+            "training recon-only (no SDS)")
+    clip_ckpt = config["exp"].get("clip_ckpt", "")
+    if clip_ckpt and os.path.exists(clip_ckpt):
+        raise NotImplementedError(
+            f"exp.clip_ckpt {clip_ckpt!r}: the CLIP eval is not ported yet "
+            "(ROADMAP.md queue A, item A11)")
+
+
+def _kernel_launches() -> dict:
+    from .ops import gather, hist, segsum
+    return {"level_histogram": hist.level_histogram.launches,
+            "level_gather": gather.level_gather.launches,
+            "segment_sum_sorted": segsum.segment_sum_sorted.launches}
+
+
+def main(argv=None):
+    from .config import parse_cli
+    from .utils import Logger, resolve_device
+
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", default="cuda",
+                     help="where training and rendering run (cuda or cpu)")
+    args, rest = pre.parse_known_args(argv)
+    config = parse_cli(rest)
+    device = resolve_device(args.device)
+    workspace = os.path.join(config["exp"]["output"], config["exp"]["exp_name"])
+    os.makedirs(workspace, exist_ok=True)
+    log = Logger(workspace, config["exp"]["log"])
+    try:
+        _run(config, device, workspace, log)
+    finally:
+        log.close()
+
+
+def _run(config, device, workspace, log):
+    from . import mesh_export
+    from .config import dump_config
+    from .data.dataset import DeformDataset, synthetic_scene
+    from .eval.backfill import backfill_missing, wait_for_evals
+    from .train.trainer import Trainer
+    from .utils import file_backup, seed_everything
+
+    degrade = int(os.environ.get("MORPHEUS_DEGRADE", "0") or 0)
+    if degrade:
+        for note in _apply_degrade(config, degrade):
+            log(f"[degrade L{degrade}] {note}")
+    dump_config(config, workspace)
+    seed_everything(config["exp"]["seed"])
+    file_backup(workspace)
+    _check_unported(config, log)
+
+    scene = (synthetic_scene(config)
+             if config["data"]["data_dir"] == "<synthetic>" else None)
+    dataset = DeformDataset(config, scene=scene)
+    log(f"Loaded {dataset.num_frames} frames at {dataset.H}x{dataset.W}")
+    if scene is not None:
+        # GT backprojection meshes, so the 3-D metric pipeline (Acc/Comp,
+        # tools/culling.py:262-268 protocol) runs on the synthetic scene as
+        # it would on a KillingFusion scan
+        from .eval.backproj import write_backproj_meshes
+        dataset.data_dir = write_backproj_meshes(
+            scene, os.path.join(workspace, "gt_synth"))
+
+    trainer = Trainer(config, dataset, device=device, workspace=workspace)
+
+    # resume from the newest workspace checkpoint unless told otherwise
+    # (preemption recovery; the reference only writes a final ckpt)
+    ckpt_mode = config["exp"].get("ckpt", "latest")
+    if ckpt_mode and ckpt_mode != "scratch":
+        if ckpt_mode == "latest":
+            cands = sorted(glob.glob(os.path.join(workspace, "models",
+                                                  "model_ep_*.pkl")))
+            ckpt_path = cands[-1] if cands else None
+        else:
+            ckpt_path = ckpt_mode
+        if ckpt_path and os.path.exists(ckpt_path):
+            trainer.load_ckpt(ckpt_path)
+            log(f"Resumed from {ckpt_path} (epoch {trainer.epoch})")
+
+    mesh_dir = os.path.join(workspace, "mesh")
+    info = mesh_export.export_mesh(trainer.field,
+                                   os.path.join(mesh_dir, "init.ply"),
+                                   resolution=MESH_RES, cano=True)[2]
+    log("Exported init mesh")
+    log("mesh-export " + json.dumps(info))
+
+    max_epochs = config["train"]["n_epochs"]
+    exp = config["exp"]
+    # crash-resume repair: any eval epoch whose metric_3d.txt row was lost
+    # to a mid-eval kill is re-evaluated from its on-disk meshes by a
+    # detached worker before training continues
+    backfill_missing(workspace, dataset.num_frames,
+                     exp.get("mesh_all_eval_interval", 0), trainer.epoch,
+                     max_epochs=max_epochs, log=log)
+
+    _epoch_loop(trainer, dataset, log, workspace, mesh_dir, max_epochs, exp)
+    # evals run in detached sessions and survive a trainer crash; on the
+    # clean exit path, wait for them so "Training done." implies the final
+    # metric rows are on disk. MORPHEUS_EVAL_DRAIN_S=0 skips the wait.
+    drain_s = float(os.environ.get("MORPHEUS_EVAL_DRAIN_S", "5400") or 0)
+    t0 = time.perf_counter()
+    if drain_s > 0 and not wait_for_evals(workspace, timeout_s=drain_s):
+        log("[eval] WARNING: eval workers still running at exit "
+            "(detached; rows will land late)")
+    log(f"[eval] waited {time.perf_counter() - t0:.3f} s for eval workers")
+    log("kernel-launches " + json.dumps(_kernel_launches()))
+    log("Training done.")
+
+
+def _prune_dense_ckpts(workspace, ci, mesh_all_interval, max_epochs):
+    """Dense interval checkpoints are crash insurance only: drop the older
+    ones on the dense cadence. Keepers: mesh_all_interval epochs, anything
+    not on the dense cadence (e.g. a previous run's final checkpoint), and
+    the TWO newest (numeric epoch, not lexical), so that a poisoned newest
+    one rolls back one interval, not to the last mesh_all_interval one."""
+    cands = []
+    for old in glob.glob(os.path.join(workspace, "models", "model_ep_*.pkl")):
+        m = re.match(r"model_ep_(\d+)\.pkl$", os.path.basename(old))
+        if m:
+            cands.append((int(m.group(1)), old))
+    cands.sort()
+    for ep, old in cands[:-2]:
+        if ep % ci == 0 and ep % mesh_all_interval != 0 and ep != max_epochs:
+            os.remove(old)
+
+
+def _epoch_loop(trainer, dataset, log, workspace, mesh_dir, max_epochs, exp):
+    from . import mesh_export
+    from .eval.backfill import run_eval_detached
+    from .vis import mesh_video
+    from .vis import video as video_lib
+
+    def timed(fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        return out, time.perf_counter() - t0
+
+    for epoch in range(trainer.epoch + 1, max_epochs + 1):
+        trainer.epoch = epoch
+        try:
+            loss, train_s = timed(trainer.train_one_epoch)
+        except torch.cuda.OutOfMemoryError:
+            log(f"[oom] out of device memory at epoch {epoch} (global step "
+                f"{trainer.global_step})")
+            log(torch.cuda.memory_summary(trainer.device))
+            raise
+        stats = {"epoch": epoch, "loss": loss, "train_s": train_s}
+        if epoch % 10 == 0 or epoch == 1:
+            log(f"epoch {epoch}/{max_epochs} loss={loss:.4f} "
+                f"({train_s:.2f}s){_mem_note(trainer.device)}")
+
+        # periodic checkpoint (every mesh_all_interval epochs) + final;
+        # exp.ckpt_interval adds a denser cadence for preemption-prone runs
+        ci = exp.get("ckpt_interval", 0)
+        mai = exp["mesh_all_interval"]
+        if epoch % mai == 0 or epoch == max_epochs or (ci and epoch % ci == 0):
+            _, stats["ckpt_s"] = timed(trainer.save_ckpt, os.path.join(
+                workspace, "models", f"model_ep_{epoch:04d}.pkl"))
+            if ci and epoch % mai != 0 and epoch != max_epochs:
+                _prune_dense_ckpts(workspace, ci, mai, max_epochs)
+
+        if epoch % exp["test_interval"] == 0 or epoch == max_epochs:
+            results = os.path.join(workspace, "results")
+            stats["test_video_s"] = [timed(video_lib.render_test_video,
+                                           trainer, results, name, **kw)[1]
+                                     for name, kw in (
+                ("test", {"phis": 0}), ("test_180", {"phis": 0.5}),
+                ("test_cano", {"cano": True}),
+                ("test_360", {"view_360": True}),
+                ("test_real", {"real_view": True}))]
+
+        if epoch % exp["mesh_interval"] == 0 or epoch == max_epochs:
+            # meshes come from the live parameters, videos from the EMA
+            info = mesh_export.export_mesh(
+                trainer.field, os.path.join(mesh_dir, f"mesh_{epoch:04d}.ply"),
+                resolution=MESH_RES, cano=True)[2]
+            log("mesh-export " + json.dumps(info))
+
+        if epoch % mai == 0 or epoch == max_epochs:
+            mesh_all_dir = os.path.join(workspace, "mesh_all")
+            resolution = (MESH_ALL_RES if epoch != max_epochs
+                          else MESH_ALL_FINAL_RES)
+            for info in mesh_export.export_all_meshes(
+                    trainer.field, mesh_all_dir, dataset.num_frames, epoch,
+                    resolution=resolution):
+                log("mesh-export " + json.dumps(info))
+
+            images_real = os.path.join(workspace, "images_real",
+                                       f"image_{epoch:04d}")
+            images_360 = os.path.join(workspace, "images_360",
+                                      f"image_{epoch:04d}")
+            video_dir = os.path.join(workspace, "videos")
+            depth_dir = os.path.join(workspace, "depths",
+                                     f"depths_{epoch:04d}")
+            stats["mesh_video_s"] = [
+                timed(mesh_video.render_all_meshes, trainer, mesh_all_dir,
+                      images_real, video_dir, epoch, scale=1,
+                      save_depths_dir=depth_dir)[1],
+                timed(mesh_video.render_all_meshes, trainer, mesh_all_dir,
+                      images_360, video_dir, epoch, view_360=True,
+                      video_name="video_360")[1]]
+
+            if epoch % exp["mesh_all_eval_interval"] == 0 \
+                    or epoch == max_epochs:
+                # detached worker (own session): a supervisor SIGTERM of the
+                # trainer cannot lose this epoch's metric_3d row
+                run_eval_detached(workspace, [epoch], log=log)
+        log("epoch-stats " + json.dumps(stats))
+
+
+if __name__ == "__main__":
+    main()

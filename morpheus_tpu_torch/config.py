@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import os
 from typing import Any
 
 import yaml
@@ -197,3 +198,11 @@ def parse_cli(argv: list[str] | None = None) -> dict:
             if key not in ("section", "config") and value is not None:
                 config[args.section][key] = value
     return config
+
+
+def dump_config(config: dict, workspace: str, name: str = "config.yaml") -> None:
+    """Snapshot the resolved config into the workspace (reference:
+    morpheus.py:1551-1552); the eval worker rebuilds the dataset from it."""
+    os.makedirs(workspace, exist_ok=True)
+    with open(os.path.join(workspace, name), "w") as f:
+        yaml.dump(config, f)

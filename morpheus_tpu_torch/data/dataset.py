@@ -1,7 +1,11 @@
-"""RGB-D sequence held in memory and real-view ray sampling
-(port of morpheus_tpu/data/dataset.py: DeformDataset for an in-memory scene,
-device_data, sample_real_view_rays)."""
+"""RGB-D sequence, real-view ray sampling and eval-render rays (port of
+morpheus_tpu/data/dataset.py: remove_outlier, DeformDataset with its disk
+loader, device_data, sample_real_view_rays, full_frame_rays and the
+fixed-angle form of VirtualViewSampler)."""
 from __future__ import annotations
+
+import os
+from glob import glob
 
 import numpy as np
 import torch
@@ -10,15 +14,56 @@ from .. import cameras
 from .synthetic import make_synthetic_scene
 
 
-class DeformDataset:
-    """Wraps an in-memory scene dict (see data/synthetic.py). Loading a
-    preprocessed sequence from disk is not ported yet (ROADMAP.md A8)."""
+def remove_outlier(poses: np.ndarray, theta, phi, radius, thresh: float = 2.0):
+    """Z-score walk pose-outlier rejection (datasets/dataset.py:77-143).
+    Mutates theta/phi/radius in place like the reference; returns new poses."""
+    num_frames = poses.shape[0]
+    trans = poses[:, :3, 3]
+    diff = np.sqrt(((trans[1:] - trans[:-1]) ** 2).sum(-1))
+    mean, std = diff.mean(), diff.std() + 1e-12
+    z = (diff - mean) / std
+    outlier_indices = np.where(np.abs(z) > thresh)[0]
 
-    def __init__(self, config: dict, scene: dict):
-        if config["data"].get("outlier_remove", False):
-            raise NotImplementedError(
-                "data.outlier_remove: not ported (ROADMAP.md queue A, A8)")
+    trans_new = trans.copy()
+    pose_new = poses.copy()
+    final = []
+    for i in outlier_indices:
+        index = i + 1
+        while index <= num_frames - 1:
+            prev_diff = np.sqrt(((trans_new[index] - trans_new[index - 1])
+                                 ** 2).sum())
+            if (prev_diff - mean) / std > thresh:
+                final.append(int(index))
+                trans_new[index] = trans_new[index - 1]
+                pose_new[index] = pose_new[index - 1]
+                theta[index] = theta[index - 1]
+                phi[index] = phi[index - 1]
+                radius[index] = radius[index - 1]
+                if index > num_frames - 2:
+                    break
+                next_diff = np.sqrt(((trans_new[index + 1] - trans_new[index])
+                                     ** 2).sum())
+                if (next_diff - mean) / std > thresh:
+                    index += 1
+                else:
+                    break
+            else:
+                break
+    if final:
+        print("Outlier removed:", final)
+    return pose_new
+
+
+class DeformDataset:
+    """A preprocessed sequence loaded from disk (color_virt/ depth_raw_crop/
+    mask_virt/ poses_virt/ K_virt.txt r_theta_phi.txt,
+    datasets/dataset.py:45-178) or an in-memory scene dict (see
+    data/synthetic.py)."""
+
+    def __init__(self, config: dict, scene: dict | None = None):
         self.cfg = config
+        if scene is None:
+            scene = self._load_from_disk(config["data"]["data_dir"])
         self.images = scene["images"]          # (T,H,W,3) float [0,1]
         self.depths = scene["depths"]          # (T,H,W) meters
         self.masks = scene["masks"]            # (T,H,W) float [0,1]
@@ -31,6 +76,34 @@ class DeformDataset:
         self.H, self.W = self.images.shape[1:3]
         # the reference reads it from a float32 box: float(float32(1.01))
         self.bound = float(np.float32(1.01))
+        if config["data"].get("outlier_remove", False):
+            self.poses = remove_outlier(self.poses, self.theta, self.phi,
+                                        self.radius)
+
+    def _load_from_disk(self, data_dir: str) -> dict:
+        import cv2
+        depth_scale = self.cfg["data"]["depth_scale"]
+        p_images = sorted(glob(os.path.join(data_dir, "color_virt/*.png")))
+        p_depths = sorted(glob(os.path.join(data_dir, "depth_raw_crop/*.png")))
+        p_masks = sorted(glob(os.path.join(data_dir, "mask_virt/*.png")))
+        if not p_images:
+            raise FileNotFoundError(f"no frames under {data_dir}")
+        images = np.stack([cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
+                           for p in p_images]).astype(np.float32) / 255.0
+        depths = np.stack([cv2.imread(p, cv2.IMREAD_UNCHANGED)
+                           for p in p_depths]).astype(np.float32) / depth_scale
+        masks = np.stack([cv2.imread(p, cv2.IMREAD_UNCHANGED)
+                          for p in p_masks]).astype(np.float32) / 255.0
+        K = np.loadtxt(os.path.join(data_dir, "K_virt.txt"))
+        rtp = np.loadtxt(os.path.join(data_dir, "r_theta_phi.txt"))
+        p_poses = sorted(glob(os.path.join(data_dir, "poses_virt/*.txt")))
+        poses = np.stack([np.loadtxt(p) for p in p_poses]).astype(np.float32)
+        return {
+            "images": images, "depths": depths, "masks": masks, "poses": poses,
+            "K": K, "radius": rtp[:, 0].astype(np.float32),
+            "theta": rtp[:, 1].astype(np.float32),
+            "phi": rtp[:, 2].astype(np.float32),
+        }
 
     def device_data(self, device, scale: float = 1.0) -> dict:
         """All frames and the camera-space ray grid as tensors on `device`,
@@ -94,12 +167,81 @@ def sample_real_view_rays(draws, data: dict, num_frames: int,
     }
 
 
+def _pose_rays(pose: torch.Tensor, d_cam: torch.Tensor, frame_idx: int,
+               num_frames: int) -> dict:
+    """Rays of every pixel of d_cam (N, 3) under one c2w pose, at frame
+    frame_idx's time."""
+    N = d_cam.shape[0]
+    dev = d_cam.device
+    return {
+        "rays_o": pose[:3, 3].expand(N, 3),
+        "rays_d": (d_cam[..., None, :] * pose[:3, :3]).sum(-1),
+        "rays_t": torch.full((N, 1), frame_idx / num_frames, device=dev),
+        "rays_id": torch.full((N,), frame_idx, dtype=torch.long, device=dev),
+    }
+
+
+def full_frame_rays(data: dict, num_frames: int, frame_idx: int) -> dict:
+    """All rays of one frame (eval/video rendering)."""
+    return _pose_rays(data["poses"][frame_idx], data["rays_d_cam"],
+                      frame_idx, num_frames)
+
+
+class VirtualViewSampler:
+    """Virtual-view rays at a fixed novel-view scale (reference:
+    dataset.py:435-578). The port has the fixed-angle form that the test
+    videos render; the random camera of the SDS virtual step is not ported
+    yet (ROADMAP.md queue A, item A10)."""
+
+    def __init__(self, dataset: DeformDataset, config: dict, scale: float,
+                 device):
+        self.config = config
+        self.num_frames = dataset.num_frames
+        self.H = int(scale * dataset.H)
+        self.W = int(scale * dataset.W)
+        K = cameras.scale_intrinsics(dataset.intrinsics, scale)
+        rays = cameras.get_camera_rays(self.H, self.W, K[0, 0], K[1, 1],
+                                       K[0, 2], K[1, 2]).reshape(-1, 3)
+        self.device = device
+        self.rays_d_cam = torch.as_tensor(rays, device=device)
+        self.radius = np.asarray(dataset.radius, np.float32)
+        self.theta = np.asarray(dataset.theta, np.float32)
+        self.phi = np.asarray(dataset.phi, np.float32)
+
+    def sample(self, frame_idx: int | None = None, theta_deg=None,
+               phi_deg=None) -> dict:
+        """Rays of a camera on the frame's orbit at the given polar angles
+        (degrees; reference get_c2w_from_polar path, dataset.py:526-532),
+        and the angles' differences from the frame's real view."""
+        if frame_idx is None or theta_deg is None or phi_deg is None:
+            raise NotImplementedError(
+                "random virtual cameras (the SDS virtual step) are not "
+                "ported yet (ROADMAP.md queue A, item A10)")
+        radius = self.radius[frame_idx] * np.float32(
+            self.config["data"]["novel_view_scale_factor"])
+        thetas = np.asarray(theta_deg, np.float32).reshape(1)
+        phis = np.asarray(phi_deg, np.float32).reshape(1)
+        pose = torch.as_tensor(cameras.c2w_from_polar(radius, thetas, phis)[0],
+                               device=self.device)
+        out = _pose_rays(pose, self.rays_d_cam, frame_idx, self.num_frames)
+        delta_azimuth = phis - self.phi[frame_idx]
+        delta_azimuth = np.where(delta_azimuth > 180, delta_azimuth - 360,
+                                 delta_azimuth)
+        out.update({
+            "polar": thetas - self.theta[frame_idx],
+            "azimuth": delta_azimuth.astype(np.float32),
+            "radius": np.reshape(radius - self.radius[frame_idx], (1,)),
+            "frame_idx": frame_idx, "H": self.H, "W": self.W})
+        return out
+
+
 def load_synthetic(config: dict) -> DeformDataset:
     """The `data_dir: "<synthetic>"` scene of a config (morpheus.py:105-113)."""
-    if config["data"]["data_dir"] != "<synthetic>":
-        raise NotImplementedError(
-            "on-disk datasets are not ported yet (ROADMAP.md queue A, A8)")
+    return DeformDataset(config, synthetic_scene(config))
+
+
+def synthetic_scene(config: dict) -> dict:
+    """The in-memory scene of a `data_dir: "<synthetic>"` config."""
     res = int(config["data"].get("synthetic_res", 64))
-    scene = make_synthetic_scene(
+    return make_synthetic_scene(
         num_frames=int(config["data"].get("synthetic_frames", 8)), H=res, W=res)
-    return DeformDataset(config, scene)

@@ -1,6 +1,7 @@
-"""Volume renderer with its inline regularizers, real-view training path
-(port of morpheus_tpu/renderer.py: render_rays with merge_smooth and
-band_reuse, _ortho_normal_dir, _band_reuse_normal_smoothness).
+"""Volume renderer with its inline regularizers: the real-view training
+path and the eval renders (port of morpheus_tpu/renderer.py: render_rays
+with merge_smooth and band_reuse, its cano/real_view flags and background,
+_ortho_normal_dir, _band_reuse_normal_smoothness).
 
 N rays are marched against the occupancy grid, compacted to a flat stream of
 B = sample_budget*N samples, evaluated by one field closure (samples plus the
@@ -108,15 +109,19 @@ def _subset_sel(draws, name: str, mask: torch.Tensor, budget: int):
 
 
 def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
-                rays_id, rcfg: RenderConfig, *, bg_color, ambient_ratio=1.0,
-                shading_id: int = SHADING_ALBEDO, rays_depth=None,
+                rays_id, rcfg: RenderConfig, *, bg_color=None,
+                ambient_ratio=1.0, shading_id: int = SHADING_ALBEDO,
+                real_view: bool = True, cano: bool = False, rays_depth=None,
                 rays_mask=None, optimize_pose: bool = False, max_level=None,
                 train: bool = True) -> dict:
-    """Render N real-view rays; all array arguments are (N, ...)."""
+    """Render N rays; all array arguments are (N, ...). cano renders the
+    canonical field (no deformation, no pose correction, no code
+    smoothness); bg_color None is the background net for a canonical
+    virtual view when the model has one (bg_radius > 0), white otherwise."""
     N = rays_o.shape[0]
     K = rcfg.max_samples
 
-    if optimize_pose:
+    if not cano and optimize_pose:
         rays_o, rays_d = field.pose_optimisation(rays_o, rays_d, rays_id)
 
     t_starts, t_ends, mask, score = occupancy.march_rays(
@@ -156,19 +161,24 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
             * rcfg.smoothness_std
         sdf, sigmas, rgbs, normals, deform, normal_raw, n_p = field(
             x_flat, t_flat, light_d=light_flat, ratio=ambient_ratio,
-            shading_id=shading_id, compute_normals=True, max_level=max_level,
-            extra_normal_x=xp)
+            shading_id=shading_id, cano=cano, compute_normals=True,
+            max_level=max_level, extra_normal_x=xp)
     else:
         sdf, sigmas, rgbs, normals, deform, normal_raw = field(
             x_flat, t_flat, light_d=light_flat, ratio=ambient_ratio,
-            shading_id=shading_id, compute_normals=rcfg.compute_normals,
-            max_level=max_level)
+            shading_id=shading_id, cano=cano,
+            compute_normals=rcfg.compute_normals, max_level=max_level)
 
     weights, _, _ = volrender.flat_render_weights(
         cs["t_starts"], cs["t_ends"], sigmas, valid, seg)
     opacity = volrender.flat_accumulate(weights, None, seg)         # (N, 1)
     depth = volrender.flat_accumulate(weights, t_mid[:, None], seg)[..., 0]
     rgb = volrender.flat_accumulate(weights, rgbs, seg)             # (N, 3)
+    if bg_color is None:
+        if rcfg.bg_radius > 0 and cano and not real_view:
+            bg_color = field.background(rays_d, rays_t)
+        else:
+            bg_color = 1.0
     image = rgb + (1.0 - opacity) * bg_color
 
     out = {"image": image, "depth": depth, "opacity": opacity[..., 0],
@@ -195,7 +205,7 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
         if normal_raw is not None:
             out["normal_raw_eik"] = losses.eikonal_loss(normal_raw, valid)
 
-    if rcfg.code_reg:
+    if rcfg.code_reg and not cano:
         t0 = rays_t[:1]
         dt = 1.0 / rcfg.num_frames
         out["loss_code"] = losses.code_smoothness(

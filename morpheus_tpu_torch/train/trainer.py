@@ -5,17 +5,26 @@ non-finite skip, _active_levels and the epoch loop).
 
     trainer = Trainer(config, dataset)          # device="cuda" by default
     loss = trainer.train_one_epoch()
+    trainer.save_ckpt(path); trainer.load_ckpt(path)
 
 One real step: draw a ray batch, refresh the occupancy grid on its cadence,
 render with all regularizers, take the gradient of the weighted loss and
 apply Adam unless a gradient is non-finite. The step makes no host
 synchronisation; the epoch loop reads the loss once at its end.
+
+A checkpoint (save_ckpt, load_ckpt: the port of morpheus_tpu/train/
+trainer.py:919-955) is a pickle of plain dicts, lists, numpy arrays and
+numbers, so that reading it needs no class of either package.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import os
+import pickle
 import time
 
+import numpy as np
 import torch
 
 from .. import renderer
@@ -34,7 +43,8 @@ OCC_CHUNK = 32768
 class Trainer:
     def __init__(self, config: dict, dataset: data_lib.DeformDataset,
                  device="cuda", seed: int | None = None,
-                 draws: Draws | None = None, guidance=None):
+                 draws: Draws | None = None, guidance=None,
+                 workspace: str | None = None):
         if guidance is not None:
             raise NotImplementedError(
                 "guidance (Zero123 SDS virtual steps) is not ported yet "
@@ -45,6 +55,8 @@ class Trainer:
                 "item A12)")
         self.config = config
         self.dataset = dataset
+        self.workspace = workspace or os.path.join(config["exp"]["output"],
+                                                   config["exp"]["exp_name"])
         self.device = resolve_device(device)
         seed = config["exp"].get("seed", 2024) if seed is None else seed
         self.draws = draws if draws is not None else Draws(self.device, seed)
@@ -91,7 +103,10 @@ class Trainer:
         named = list(self.field.named_parameters())
         self.params = [p for _, p in named]
         self.optim = optim.Adam(named)
-        self.ema = [p.detach().clone() for p in self.params]
+        # the EMA weights are the parameters of a second field, which the
+        # test videos render
+        self.ema_field = copy.deepcopy(self.field).requires_grad_(False)
+        self.ema = list(self.ema_field.parameters())
 
     def load_params(self, state: dict):
         """Load parameters by name (see convert.params_from_jax); resets the
@@ -284,3 +299,71 @@ class Trainer:
             log(f"epoch {epoch}/{max_epochs} loss={loss:.4f} "
                 f"({time.time() - t0:.2f}s)")
         return self.field
+
+    # ---- checkpoints (reference: morpheus.py:329-358) ----
+
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs to continue as if never stopped:
+        parameters, Adam's step and moments, the EMA, the occupancy grid,
+        the step and epoch counters and the state of the random draws (the
+        port has no virtual steps, so its host step is the global step)."""
+        def arrays(ts):
+            return {n: t.detach().cpu().numpy()
+                    for n, t in zip(self.optim.names, ts)}
+        draws = (self.draws.generator.get_state().numpy()
+                 if isinstance(self.draws, Draws) else None)
+        return {
+            "params": arrays(self.params),
+            "optim": {"name": "adam", "step": float(self.optim.step),
+                      "mu": arrays(self.optim.mu),
+                      "nu": arrays(self.optim.nu)},
+            "ema": arrays(self.ema),
+            "occ": {"occs": self.occ.occs.cpu().numpy(),
+                    "binaries": self.occ.binaries.cpu().numpy()},
+            "global_step": int(self.global_step),
+            "epoch": int(self.epoch),
+            "draws": draws,
+            "host_step": int(self.global_step),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a state_dict() (or convert.load_jax_ckpt's dict, which
+        has no draws state) in place."""
+        if state["optim"]["name"] != "adam":
+            raise NotImplementedError(
+                f"optimizer {state['optim']['name']!r}: the port runs Adam "
+                "only (ROADMAP.md queue A, item A15)")
+
+        def load(dst, src):
+            with torch.no_grad():
+                for n, t in zip(self.optim.names, dst):
+                    t.copy_(torch.as_tensor(np.asarray(src[n])))
+        load(self.params, state["params"])
+        load(self.optim.mu, state["optim"]["mu"])
+        load(self.optim.nu, state["optim"]["nu"])
+        load(self.ema, state["ema"])
+        self.optim.step.fill_(float(state["optim"]["step"]))
+        self.occ = occupancy.OccupancyState(
+            occs=torch.as_tensor(np.asarray(state["occ"]["occs"]),
+                                 device=self.device),
+            binaries=torch.as_tensor(np.asarray(state["occ"]["binaries"]),
+                                     device=self.device))
+        self.global_step = int(state["global_step"])
+        self.epoch = int(state["epoch"])
+        if state.get("draws") is not None and isinstance(self.draws, Draws):
+            self.draws.generator.set_state(
+                torch.as_tensor(np.asarray(state["draws"])))
+
+    def save_ckpt(self, path: str) -> None:
+        """Write state_dict() to `path` atomically (a .tmp file, then
+        os.replace), as morpheus_tpu/train/trainer.py:921-934 does."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(self.state_dict(), f)
+        os.replace(tmp, path)
+
+    def load_ckpt(self, path: str) -> None:
+        """Resume from a checkpoint that save_ckpt wrote."""
+        with open(path, "rb") as f:
+            self.load_state_dict(pickle.load(f))

@@ -74,3 +74,46 @@ def test_capture_streams_records_one_step_and_restores(chip_smoke, mode):
     for c in calls:
         out = real[c["kernel"]](*c["args"], **c["kw"])
         assert bool(torch.isfinite(out).all())
+
+
+def test_cli_config_cuts_only_depth(chip_smoke, tmp_path):
+    """The CLI phase's config keeps every width of
+    configs/synthetic_bench.yaml and cuts frames, epochs and cadence."""
+    import yaml
+    with open(os.path.join(os.path.dirname(_PATH), "configs",
+                           "synthetic_bench.yaml")) as f:
+        bench = yaml.safe_load(f)
+    cfg = chip_smoke.cli_config(str(tmp_path))
+    for section, kv in bench.items():
+        for key, value in kv.items():
+            cut = chip_smoke.CLI_CUTS.get(section, {})
+            if key in cut:
+                assert cfg[section][key] == cut[key]
+            elif (section, key) not in (("exp", "output"),
+                                        ("exp", "exp_name")):
+                assert cfg[section][key] == value, (section, key)
+    assert cfg["data"]["synthetic_res"] == 360
+    assert cfg["train"]["real_ray_num"] == 2048
+
+
+def test_capture_mesh_gather_records_and_restores(chip_smoke, tmp_path):
+    """capture_mesh_gather on the CPU at the tiny config under mxu_rows:
+    the dense query's first level_gather call is recorded, every launch of
+    the export is counted, and the real function is restored."""
+    cfg = chip_smoke.tiny_config("mxu_rows")
+    tr = Trainer(cfg, load_synthetic(cfg), device="cpu")
+    real = gather.level_gather
+    args, launches, info = chip_smoke.capture_mesh_gather(
+        tr.field, str(tmp_path / "m.ply"), resolution=24)
+    assert hashgrid.level_gather is real
+    assert info["backend"] == "native" and info["faces"] > 0
+    idx, emb, starts, n_split = args
+    # one chunk of 24^3 points, 8 corners each, on the 3 hashed and dense
+    # levels; the sdf table; one bf16 plane
+    assert idx.shape == (4, 8 * 24 ** 3) and emb.shape[1] == 2
+    assert n_split == 1
+    out = real(*args)
+    assert out.shape == (4 * 8 * 24 ** 3, 2) and bool(torch.isfinite(out).all())
+    # the CPU runs the plain twin: no launch is counted
+    assert launches == {"level_histogram": 0, "level_gather": 0,
+                        "segment_sum_sorted": 0}

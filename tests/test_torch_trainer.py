@@ -30,11 +30,16 @@ def test_real_loss_and_grads_match_jax(payload, monkeypatch):
 
 
 def test_trainer_imports_without_jax():
-    """The port's trainer imports with jax and the JAX package unavailable."""
+    """The port's trainer, CLI, mesh export, videos and eval worker import
+    with jax and the JAX package unavailable."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['morpheus_tpu'] = None; "
             "import morpheus_tpu_torch.train.trainer, morpheus_tpu_torch.convert, "
-            "morpheus_tpu_torch.ops.segsum, morpheus_tpu_torch.ops.gather")
+            "morpheus_tpu_torch.ops.segsum, morpheus_tpu_torch.ops.gather, "
+            "morpheus_tpu_torch.__main__, morpheus_tpu_torch.mesh_export, "
+            "morpheus_tpu_torch.vis.video, morpheus_tpu_torch.vis.mesh_video, "
+            "morpheus_tpu_torch.eval.backfill, morpheus_tpu_torch.eval.culling, "
+            "morpheus_tpu_torch.native")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=root)
 
