@@ -7,6 +7,8 @@
 
     python3 chip_smoke.py --cli-only         # phases 1-2 and 9
 
+    python3 chip_smoke.py --sds-only         # phases 1-2, 8b and 10
+
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every hand-written kernel from the sources in this checkout, one
@@ -41,6 +43,18 @@ Phases, in order; any failure exits non-zero:
   8. the main path at a tiny size on the card against the same run on the
      CPU (same parameters, same random draws), under each of the three
      modes;
+  8b. the SDS virtual step (sds_phase) at the full width of
+     configs/synthetic_full.yaml: the full-size "<random>" Zero123 under
+     guidance.compute_dtype bfloat16, 32 frames at 360^2, bg_radius 1.4,
+     16 levels, hist_rows; one epoch from step 0, then 5 timed SDS steps at
+     each operating point (epoch 300: scale 0.2, 5,184 rays, the deform
+     freeze on, so Adam steps; epoch 900: scale 0.5, 32,400 rays, the
+     freeze off, so the gradients are carried and a real step folds them
+     in) with launches per step, peak memory and a 2-step trace split into
+     render, VAE encoder, UNet and Adam (`sds point:` and `sds trace:`
+     lines); then one SDS step at scale 0.5 captured under hist_rows,
+     mxu_rows and sort_pallas_rows, whose calls become kernel lines
+     step_sds_<mode>_<i>; and a tiny SDS run on the card against the CPU;
   9. the trainer CLI (python -m morpheus_tpu_torch) at the widths of
      configs/synthetic_bench.yaml with its frames, epochs and diagnostic
      cadence cut (CLI_CUTS): first one canonical mesh export under
@@ -50,7 +64,11 @@ Phases, in order; any failure exits non-zero:
      resumes. The artifacts of morpheus.py's epoch loop are checked (meshes,
      test videos, mesh videos, checkpoints, the eval worker's metric_3d.txt
      rows) and the seconds of each part printed (`cli:` line); each CLI run
-     reports its kernel launches, counted from 0 in its own process.
+     reports its kernel launches, counted from 0 in its own process;
+  10. the trainer CLI with SDS on configs/synthetic_full.yaml, widths kept,
+     depth cut (SDS_CLI_CUTS): one epoch, then a second process resumes;
+     finite losses, a guidance panel and checkpoints holding pending_grads
+     and host_step are checked (`sds cli:` line).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -137,14 +155,15 @@ def device_ms(fn, k: int = 50, reps: int = 5) -> tuple[float, bool]:
     return statistics.median(times), gaps
 
 
-def timings(kernel, plain, library) -> dict:
+def timings(kernel, plain, library, k: int = 50) -> dict:
     """ms (device time per call), call_ms (one call, host included),
-    plain_ms and library_ms (device time) of a kernel line; host_gaps names
-    the device times that include host gaps (see device_ms)."""
+    plain_ms and library_ms (device time) of a kernel line, each device
+    time over k calls; host_gaps names the device times that include host
+    gaps (see device_ms)."""
     out, gaps = {}, []
     for key, fn in (("ms", kernel), ("plain_ms", plain),
                     ("library_ms", library)):
-        out[key], gap = (None, False) if fn is None else device_ms(fn)
+        out[key], gap = (None, False) if fn is None else device_ms(fn, k=k)
         if gap:
             gaps.append(key)
     out["call_ms"] = call_ms(kernel)
@@ -255,7 +274,7 @@ def hist_cases(device):
     return cases
 
 
-def hist_line(case, idx, vals, starts, n_rows, kw) -> dict:
+def hist_line(case, idx, vals, starts, n_rows, kw, k: int = 50) -> dict:
     """Phase 3: one level_histogram call against level_histogram_reference
     on the same inputs, then timed. Tolerance: |kernel - plain| <= 1e-5 *
     (histogram of |payload|) + 1e-6 per slot - float32 sums taken in
@@ -291,7 +310,7 @@ def hist_line(case, idx, vals, starts, n_rows, kw) -> dict:
         lambda: hist.level_histogram(idx, vals, starts, n_rows, **kw),
         lambda: hist.level_histogram_reference(idx, vals, starts, n_rows,
                                                **kw),
-        library))
+        library, k))
     row.update(bound(N * 4 + N * C * vals.element_size() + n_rows * C * 4,
                      N * C))
     log("hist", json.dumps(row))
@@ -356,7 +375,7 @@ def segsum_cases(device):
     return cases, rows
 
 
-def segsum_line(case, keys, vals, T, kw) -> dict:
+def segsum_line(case, keys, vals, T, kw, k: int = 50) -> dict:
     """Phase 3: one segment_sum_sorted call (keyword arguments kw: order,
     round_bf16) against segment_sum_sorted_reference, and against a second
     call bit for bit (the kernel adds in an order fixed by the shapes), then
@@ -402,9 +421,9 @@ def segsum_line(case, keys, vals, T, kw) -> dict:
     row.update(timings(
         lambda: segsum.segment_sum_sorted(keys, vals, T, **kw),
         lambda: segsum.segment_sum_sorted_reference(keys, vals, T, **kw),
-        library if in_table else None))
+        library if in_table else None, k))
     if order is not None:
-        row["permute_ms"] = device_ms(permuted)[0]
+        row["permute_ms"] = device_ms(permuted, k=k)[0]
     row.update(bound(N * 4 + (0 if order is None else N * 8)
                      + N * C * vals.element_size() + T * C * 4, N * C))
     log("segsum", json.dumps(row))
@@ -484,7 +503,7 @@ def gather_cases(device):
     return cases, list(offs[:16])
 
 
-def gather_line(case, local, emb, starts, S) -> dict:
+def gather_line(case, local, emb, starts, S, k: int = 50) -> dict:
     """Phase 3: one level_gather call against level_gather_reference, bit
     for bit (both round the same f32 values to nearest even and sum the
     planes in the same order), then timed. The library call is one
@@ -505,7 +524,7 @@ def gather_line(case, local, emb, starts, S) -> dict:
     row.update(timings(
         lambda: gather.level_gather(local, emb, starts, S),
         lambda: gather.level_gather_reference(local, emb, starts, S),
-        lambda: emb.index_select(0, rows)))
+        lambda: emb.index_select(0, rows), k))
     # two subtractions and two additions per value under three planes
     row.update(bound(N * 4 + T * C * 4 + N * C * 4,
                      N * C * (4 if S == 3 else 0)))
@@ -529,24 +548,10 @@ def capture_streams(trainer) -> list:
     step's occupancy refresh, as the step makes them: recorders wrap the
     names in ops/hashgrid.py (which binds the kernels at import) and the
     trainer's refresh, clone every argument and call the real function; the
-    originals are restored afterwards. Returns [{"kernel", "phase" ("step"
-    or "refresh"), "args", "kw"}], the steady step's calls first."""
-    import torch
-    from morpheus_tpu_torch.ops import hashgrid
-
-    def clone(a):
-        return a.detach().clone() if isinstance(a, torch.Tensor) else a
-
+    originals are restored afterwards (recording). Returns [{"kernel",
+    "phase" ("step" or "refresh"), "args", "kw"}], the steady step's calls
+    first."""
     calls, phase = [], ["step"]
-
-    def recorder(name, fn):
-        def record(*args, **kw):
-            calls.append({"kernel": name, "phase": phase[0],
-                          "args": tuple(clone(a) for a in args),
-                          "kw": {k: clone(v) for k, v in kw.items()}})
-            return fn(*args, **kw)
-        return record
-
     refresh = trainer._maybe_update_occ
 
     def traced_refresh(*args, **kw):
@@ -560,10 +565,8 @@ def capture_streams(trainer) -> list:
     every = tpu["occ_update_every"]
     base = max(trainer.global_step, tpu["occ_warmup_steps"])
     base = -(-base // every) * every                  # a sampled refresh
-    originals = {n: getattr(hashgrid, n) for n in CAPTURED}
+    originals = recording(calls, phase)
     try:
-        for n, fn in originals.items():
-            setattr(hashgrid, n, recorder(n, fn))
         trainer._maybe_update_occ = traced_refresh
         trainer.global_step = base + 1                 # steady: no refresh
         trainer.real_step(trainer.epoch)
@@ -571,25 +574,57 @@ def capture_streams(trainer) -> list:
         trainer.global_step = base + every             # refreshes first
         trainer.real_step(trainer.epoch)
     finally:
-        for n, fn in originals.items():
-            setattr(hashgrid, n, fn)
+        restore(originals)
         del trainer._maybe_update_occ
     return calls[:n_steady] + [c for c in calls[n_steady:]
                                if c["phase"] == "refresh"]
 
 
-def step_lines(mode, calls) -> dict:
-    """Phase 5's captured calls as kernel lines, case step_<mode>_<i>."""
-    out = {k: [] for k in CAPTURED}
-    line = {"level_histogram": lambda name, a, kw: hist_line(name, *a, kw),
-            "level_gather": lambda name, a, kw: gather_line(name, *a),
+def step_lines(mode, calls, prefix: str = "step", k: int = 50) -> dict:
+    """Captured calls as kernel lines, case <prefix>_<mode>_<i> (phase 5:
+    step_*, the SDS phase: step_sds_*), each device time over k calls."""
+    out = {n: [] for n in CAPTURED}
+    line = {"level_histogram": lambda name, a, kw: hist_line(name, *a, kw,
+                                                             k=k),
+            "level_gather": lambda name, a, kw: gather_line(name, *a, k=k),
             "segment_sum_sorted": lambda name, a, kw: segsum_line(name, *a,
-                                                                  kw)}
+                                                                  kw, k=k)}
     for i, c in enumerate(calls):
-        row = line[c["kernel"]](f"step_{mode}_{i}", c["args"], c["kw"])
+        row = line[c["kernel"]](f"{prefix}_{mode}_{i}", c["args"], c["kw"])
         row["phase"] = c["phase"]
         out[c["kernel"]].append(row)
     return out
+
+
+def recording(calls: list, phase: list):
+    """Recorders on ops/hashgrid.py's kernel names (which bind the kernels
+    at import): each call's arguments are cloned into `calls` under the
+    current phase[0], then the real function runs. Returns the originals,
+    to restore."""
+    import torch
+    from morpheus_tpu_torch.ops import hashgrid
+
+    def clone(a):
+        return a.detach().clone() if isinstance(a, torch.Tensor) else a
+
+    def recorder(name, fn):
+        def record(*args, **kw):
+            calls.append({"kernel": name, "phase": phase[0],
+                          "args": tuple(clone(a) for a in args),
+                          "kw": {k: clone(v) for k, v in kw.items()}})
+            return fn(*args, **kw)
+        return record
+
+    originals = {n: getattr(hashgrid, n) for n in CAPTURED}
+    for n, fn in originals.items():
+        setattr(hashgrid, n, recorder(n, fn))
+    return originals
+
+
+def restore(originals: dict):
+    from morpheus_tpu_torch.ops import hashgrid
+    for n, fn in originals.items():
+        setattr(hashgrid, n, fn)
 
 
 def check_double_backward(device):
@@ -839,9 +874,517 @@ def small_reference(device, mode: str):
         f"param diff {worst} (limit {2 * 4 * lr})")
 
 
-# the CLI phase's cuts of configs/synthetic_bench.yaml: frames, epochs and
-# the diagnostics' cadence; every width stays the config's
-CLI_CUTS = {"data": {"synthetic_frames": 4},
+# ---- the SDS virtual step (configs/synthetic_full.yaml) ----------------------
+
+# the two operating points of a full run: (epoch, novel-view scale's config
+# key, deform freeze on); trainer.py's _novel_view_scale switches to the
+# final scale past epoch 800
+SDS_POINTS = ((300, "novel_view_scale", True),
+              (900, "novel_view_scale_final", False))
+SDS_TIMED = 5
+
+
+# what each marked window of an SDS step belongs to (the window from a mark
+# to the next); unnamed windows are "other" (sampling, resize, losses, the
+# gradient checks, the carry)
+SDS_PARTS = {"render": "render", "vae_fwd": "vae_encoder", "unet": "unet",
+             "vae_bwd": "vae_encoder", "render_bwd": "render",
+             "adam": "adam"}
+
+
+class _Marks:
+    """Named points of an SDS step, each marked twice: by a CUDA event (the
+    spans between events, on the device's clock, idle included) and by a
+    1-cycle spin kernel (torch.cuda._sleep) on the card's timeline, so that
+    the profiler's own device intervals can be split (split_busy)."""
+
+    def __init__(self):
+        self.names, self.events = [], []
+
+    def __call__(self, name):
+        import torch
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        torch.cuda._sleep(1)
+        self.names.append(name)
+        self.events.append(e)
+
+    def spans(self) -> dict:
+        """Milliseconds between consecutive marks, summed by part."""
+        ms = {p: 0.0 for p in ("render", "vae_encoder", "unet", "adam",
+                               "other")}
+        for name, a, b in zip(self.names, self.events, self.events[1:]):
+            ms[SDS_PARTS.get(name, "other")] += a.elapsed_time(b)
+        return ms
+
+
+# the spins that bracket a traced window (sds_trace), ~25 us or more each,
+# told apart from the 1-cycle markers (a few us) by their length
+BRACKET_CYCLES = 50_000
+MARKER_MAX_US = 12.0
+
+
+def split_busy(kernels, marks: list):
+    """Device busy ms per part (SDS_PARTS, and 'other') of each step: the
+    profiler's device intervals between consecutive marker kernels, their
+    union taken per window. kernels: [(name, start_us, end_us)] of the
+    traced window; marks: one _Marks per step, in order. The markers are
+    the short spin kernels (the bracket's are long). None when the trace
+    does not hold one marker per mark (then the reason is logged)."""
+    spins = [k for k in kernels if "spin_kernel" in k[0]]
+    markers = [k for k in spins if k[2] - k[1] < MARKER_MAX_US]
+    rest = [k for k in kernels if "spin_kernel" not in k[0]]
+    names = [n for m in marks for n in m.names]
+    if len(markers) != len(names):
+        log(f"sds trace: {len(markers)} marker kernels in the trace for "
+            f"{len(names)} marks (spin lengths, us: "
+            f"{[round(k[2] - k[1], 1) for k in spins]}); busy split not "
+            "measured")
+        return None
+    out, i = [], 0
+    for m in marks:
+        part = {p: 0.0 for p in ("render", "vae_encoder", "unet", "adam",
+                                 "other")}
+        for j in range(len(m.names) - 1):
+            lo, hi = markers[i + j][2], markers[i + j + 1][1]
+            busy = _busy_us([(max(s, lo), min(e, hi)) for _, s, e in rest
+                             if e > lo and s < hi])
+            part[SDS_PARTS.get(m.names[j], "other")] += busy / 1e3
+        out.append(part)
+        i += len(m.names)
+    return out
+
+
+def instrument_sds(trainer, marks):
+    """Wrap the pieces of the SDS step so that `marks` is called where each
+    begins and ends; returns an undo function."""
+    from morpheus_tpu_torch import renderer
+    from morpheus_tpu_torch.guidance import zero123 as z123
+    saved = [(renderer, "render_rays", renderer.render_rays),
+             (z123, "vae_encode_sample", z123.vae_encode_sample),
+             (z123, "apply_unet", z123.apply_unet),
+             (z123, "sds_loss", z123.sds_loss)]
+
+    def around(name, fn):
+        def run(*a, **kw):
+            marks(name)
+            out = fn(*a, **kw)
+            marks(name + "_end")
+            return out
+        return run
+
+    renderer.render_rays = around("render", saved[0][2])
+    z123.vae_encode_sample = around("vae_fwd", saved[1][2])
+    z123.apply_unet = around("unet", saved[2][2])
+    real_sds = saved[3][2]
+
+    def sds(g, draws, pred, *a, **kw):
+        # the gradient reaches the rendered image once the VAE encoder's
+        # backward is done; the render's backward follows
+        pred.register_hook(lambda grad: marks("render_bwd") or grad)
+        return real_sds(g, draws, pred, *a, **kw)
+    z123.sds_loss = sds
+    grads, update = trainer._grads, trainer.optim.update
+
+    def traced_grads(loss):
+        marks("vae_bwd")
+        out = grads(loss)
+        marks("grads_end")
+        return out
+
+    def traced_update(*a, **kw):
+        marks("adam")
+        out = update(*a, **kw)
+        marks("adam_end")
+        return out
+    trainer._grads, trainer.optim.update = traced_grads, traced_update
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        del trainer._grads
+        del trainer.optim.update
+    return undo
+
+
+def sds_trace(trainer, sampler, epoch: int, n: int = 2) -> dict:
+    """n SDS steps under torch.profiler, at global steps that refresh no
+    occupancy: the device's busy ms and idle share, the busy ms split into
+    render (forward and backward), VAE encoder (forward and backward), UNet,
+    Adam and the rest (split_busy over _Marks), the same parts' spans on the
+    device's clock (CUDA events, idle included), and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    every = trainer.config["tpu"]["occ_update_every"]
+    marks = []
+
+    def bracket():
+        for _ in range(8):
+            torch.cuda._sleep(BRACKET_CYCLES)
+        torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # long spins bracket the window: a later profiling session may
+        # miss the first kernels of its window
+        bracket()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            if trainer.global_step % every == 0:
+                trainer.global_step += 1
+            marks.append(_Marks())
+            undo = instrument_sds(trainer, marks[-1])
+            try:
+                marks[-1]("step")
+                trainer.virtual_step(epoch, sampler)
+                marks[-1]("step_end")
+            finally:
+                undo()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+        bracket()
+    dev = sorted(((e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda k: k[1])
+    if not dev:
+        raise AssertionError("the profiler saw no device kernels")
+    work = [k for k in dev if "spin_kernel" not in k[0]]
+    busy_ms = _busy_us([(s_, e_) for _, s_, e_ in work]) / 1e3
+    split = split_busy(dev, marks)
+    by_name: dict = {}
+    for name, s_, e_ in work:
+        if "memcpy" in name.lower() or "memset" in name.lower():
+            continue
+        k = by_name.setdefault(name[:80], [0, 0.0])
+        k[0] += 1
+        k[1] += (e_ - s_) / 1e3
+    for k, (c, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        log(f"sds trace: {ms / n:8.3f} ms/step {c / n:7.1f} launches/step  "
+            f"{k}")
+    spans = [m.spans() for m in marks]
+    out = {"steps": n, "step_ms_traced": window_ms / n,
+           "kernels_per_step": sum(c for c, _ in by_name.values()) / n,
+           "device_busy_ms_per_step": busy_ms / n,
+           "device_idle_share": 1.0 - busy_ms / window_ms,
+           "busy_ms_per_step_by_part": None if split is None else {
+               k: statistics.median(p[k] for p in split) for k in split[0]},
+           "span_ms_per_step_by_part": {
+               k: statistics.median(p[k] for p in spans) for k in spans[0]}}
+    log("sds trace:", json.dumps(out))
+    return out
+
+
+def sds_point(trainer, epoch: int, scale_key: str, freeze: bool,
+              n_timed: int) -> dict:
+    """n_timed SDS steps at `epoch` and its novel-view scale, each ending in
+    torch.cuda.synchronize, with each kernel's launches counted from 0 just
+    before the run and read after it; the deform freeze's effect checked
+    (on: Adam steps, the frozen groups stay; off: the parameters stay, the
+    gradients are carried, and a real step folds them in). Then a short
+    traced run."""
+    import torch
+    from morpheus_tpu_torch.train import optim
+    cfg = trainer.config
+    trainer.epoch = epoch
+    trainer._set_levels(trainer._active_levels())
+    scale = trainer._novel_view_scale()
+    if scale != cfg["data"][scale_key]:
+        raise AssertionError(f"epoch {epoch}: novel-view scale {scale}")
+    sampler = trainer.virtual_sampler(scale)
+    rays = sampler.H * sampler.W
+    if trainer.curr.freeze_deform(epoch) != freeze:
+        raise AssertionError(f"epoch {epoch}: freeze is not {freeze}")
+    trainer.virtual_step(epoch, sampler)              # untimed first step
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for p in trainer.params]
+    adam_steps = float(trainer.optim.step)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, per_step = [], [], {k: [] for k in wrappers()}
+    reset_counts()
+    for _ in range(n_timed):
+        n0 = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.virtual_step(epoch, sampler)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for k, v in read_counts().items():
+            per_step[k].append(v - n0[k])
+        losses.append(float(loss))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(v == v and abs(v) != float("inf") for v in losses):
+        raise AssertionError(f"SDS epoch {epoch}: non-finite loss {losses}")
+    if min(per_step["level_histogram"]) < 1 or launches["level_gather"] \
+            or launches["segment_sum_sorted"]:
+        raise AssertionError(f"SDS epoch {epoch}: launches {per_step}")
+    names = trainer.optim.names
+    moved = {n for n, a, b in zip(names, before, trainer.params)
+             if not torch.equal(a, b)}
+    frozen = {n for n in names if optim.group_of(n) in optim.FREEZE_GROUPS}
+    # the groups every SDS view reaches (the background net only when a
+    # view picks it, the pose never)
+    reached = {n for n in names if optim.group_of(n) in (
+        "sdf_grid", "color_grid", "sdf_net", "color_net", "beta")}
+    if freeze:
+        if moved & frozen or not reached <= moved \
+                or float(trainer.optim.step) != adam_steps + n_timed:
+            raise AssertionError(f"SDS epoch {epoch} (freeze on): moved "
+                                 f"{sorted(moved)}")
+    else:
+        carried = {n for n, g in zip(names, trainer.pending)
+                   if bool(g.any())}
+        if moved or not trainer._pending_live or not reached <= carried:
+            raise AssertionError(f"SDS epoch {epoch} (freeze off): moved "
+                                 f"{sorted(moved)}, carried "
+                                 f"{sorted(carried)}")
+        trainer.real_step(epoch)                      # folds them in
+        torch.cuda.synchronize()
+        if trainer._pending_live or any(bool(g.any())
+                                        for g in trainer.pending):
+            raise AssertionError("the real step did not fold the carried "
+                                 "gradients in")
+    med = statistics.median(step_ms)
+    out = {"epoch": epoch, "scale": scale, "view": [sampler.H, sampler.W],
+           "rays": rays, "freeze": freeze,
+           "active_levels": trainer._active_levels(), "sds_step_ms": med,
+           "step_ms": step_ms, "losses": losses,
+           "peak_mem_gb": peak / 1e9,
+           "launches_per_step": {k: v for k, v in per_step.items()
+                                 if any(v)},
+           "launches": launches, "card": card_line()}
+    log("sds point:", json.dumps(out))
+    out["trace"] = sds_trace(trainer, sampler, epoch)
+    return out
+
+
+def capture_sds_streams(trainer, epoch: int) -> list:
+    """The kernel calls of one SDS step at `epoch` (scale 0.5 past epoch
+    800), as the step makes them (recording)."""
+    calls = []
+    originals = recording(calls, ["sds"])
+    try:
+        trainer.virtual_step(epoch, trainer.virtual_sampler(
+            trainer._novel_view_scale()))
+    finally:
+        restore(originals)
+    return calls
+
+
+def set_vjp_mode(trainer, mode: str):
+    """Switch a trainer's hash-grid route in place (the parameters are the
+    same under every route)."""
+    import dataclasses
+    trainer.spec = dataclasses.replace(trainer.spec, grid=dataclasses.replace(
+        trainer.spec.grid, vjp_mode=mode))
+    trainer._set_levels(trainer._active_levels())
+
+
+def sds_phase(device, ds) -> tuple:
+    """The SDS virtual step at configs/synthetic_full.yaml's full width: the
+    CLI's "<random>" full-size Zero123 under guidance.compute_dtype
+    bfloat16, bg_radius 1.4, all 16 levels, hist_rows. One epoch from step
+    0 (its virtual slots run real steps below warm_up_steps, the 128^3
+    warmup occupancy with them), then each operating point of SDS_POINTS
+    (sds_point), then one SDS step at scale 0.5 with its kernel calls
+    captured under hist_rows, mxu_rows and sort_pallas_rows (lines
+    step_sds_<mode>_<i>, each device time over 5 calls). Returns (results,
+    kernel lines by kernel)."""
+    import torch
+    from morpheus_tpu_torch.__main__ import build_guidance
+    from morpheus_tpu_torch.config import load_config
+    from morpheus_tpu_torch.train.trainer import Trainer
+    cfg = load_config(os.path.join(HERE, "configs", "synthetic_full.yaml"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = build_guidance(cfg, device, log)
+    build_s = time.perf_counter() - t0
+    unet_gb = sum(p.numel() * p.element_size()
+                  for p in g.unet.parameters()) / 1e9
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, ds, device=device, guidance=g)
+    del g
+    torch.cuda.synchronize()
+    setup = {"guidance_build_s": build_s,
+             "trainer_and_embeddings_s": time.perf_counter() - t0,
+             "unet_weights_gb": unet_gb,
+             "keyframes": int(trainer.embeddings["kf"].numel()),
+             "mem_after_setup_gb": torch.cuda.memory_allocated() / 1e9,
+             "peak_setup_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("sds setup:", json.dumps(setup))
+    trainer.epoch = 1
+    t0 = time.perf_counter()
+    trainer.train_one_epoch(n_iters=1)                 # 11 real steps
+    torch.cuda.synchronize()
+    setup["first_epoch_s"] = time.perf_counter() - t0
+    trainer.global_step = trainer.host_step = 257
+    points = [sds_point(trainer, *p, n_timed=SDS_TIMED) for p in SDS_POINTS]
+
+    rows = {k: [] for k in CAPTURED}
+    epoch = SDS_POINTS[-1][0]
+    for mode in ("hist_rows", "mxu_rows", "sort_pallas_rows"):
+        set_vjp_mode(trainer, mode)
+        if trainer.global_step % trainer.config["tpu"]["occ_update_every"] \
+                == 0:
+            trainer.global_step += 1
+        calls = capture_sds_streams(trainer, epoch)
+        log(f"captured sds {mode}:", json.dumps(
+            [f"{c['kernel']}" for c in calls]))
+        want = set(PATH_KERNELS[mode])
+        if {c["kernel"] for c in calls} != want:
+            raise AssertionError(f"SDS step under {mode} called "
+                                 f"{[c['kernel'] for c in calls]}")
+        for k, r in step_lines(mode, calls, prefix="step_sds", k=5).items():
+            rows[k] += r
+        del calls
+        torch.cuda.empty_cache()
+    trainer.real_step(epoch)                           # folds the carry
+    del trainer
+    torch.cuda.empty_cache()
+    return {"setup": setup, "points": points}, rows
+
+
+def sds_small_reference(device):
+    """A tiny SDS run on the card against the same run on the CPU: the same
+    field and guidance weights (the smallest guidance spec with every layer
+    type), the same draws, float32: two virtual steps (freeze on, then off)
+    and a real step that folds the carry. Losses at rtol 1e-3, parameters
+    within 2*n*lr (Adam with eps 1e-15 turns round-off gradients into
+    full-lr moves), the carried gradients at rtol 1e-3, atol 1e-3 x their
+    largest."""
+    import torch
+    from morpheus_tpu_torch.data.dataset import load_synthetic
+    from morpheus_tpu_torch.guidance.zero123 import (Zero123Guidance,
+                                                     Zero123Spec)
+    from morpheus_tpu_torch.train.trainer import Trainer
+    cfg = tiny_config("hist_rows")
+    cfg["train"].update(virtual_freq=1, real_freq=1, warm_up_steps=0,
+                        freeze_epoch=4)
+    cfg["model"]["bg_radius"] = 1.4
+    cfg["data"]["novel_view_scale"] = 0.375
+    spec = Zero123Spec(image_size=16, unet_channels=32, unet_mult=(1, 2),
+                       unet_heads=2, context_dim=16, clip_width=32,
+                       clip_layers=1, clip_heads=2, clip_patch=14, vae_ch=32,
+                       vae_mult=(1, 2), vae_res_blocks=1)
+    g_cpu = Zero123Guidance.init_random(spec, "cpu", seed=3)
+    with torch.no_grad():       # no zero-initialised layer: a real epsilon
+        for p in g_cpu.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator()
+                                      .manual_seed(p.numel())))
+    state = {k: v.clone() for k, v in g_cpu.state_dict().items()}
+    runs, field = {}, None
+    for dev in (device, torch.device("cpu")):
+        g = Zero123Guidance(spec).to(dev)
+        g.load_state_dict(state)
+        tr = Trainer(cfg, load_synthetic(cfg), device=dev,
+                     draws=_HostDraws(dev, 7), guidance=g)
+        if field is None:
+            field = {k: v.detach().cpu() for k, v in
+                     tr.field.state_dict().items()}
+        tr.load_params(field)
+        sampler = tr.virtual_sampler(0.375)
+        losses = []
+        for epoch in (3, 6):
+            tr.epoch = epoch
+            tr._set_levels(tr._active_levels())
+            losses.append(float(tr.virtual_step(epoch, sampler)[0]))
+        pending = [p.detach().cpu().clone() for p in tr.pending]
+        losses.append(float(tr.real_step(6)))
+        runs[dev.type] = (losses, [p.detach().cpu() for p in tr.params],
+                          pending)
+    lr = float(tr.curr.learning_rate(6))
+    (lg, pg, cg), (lc, pc, cc) = runs[device.type], runs["cpu"]
+    for a, b in zip(lg, lc):
+        if not abs(a - b) <= 1e-3 * abs(b):
+            raise AssertionError(f"tiny SDS run losses differ: {lg} vs {lc}")
+    worst = max(float((a - b).abs().max()) for a, b in zip(pg, pc))
+    if worst > 2 * 2 * lr:
+        raise AssertionError(f"tiny SDS run params differ by {worst}")
+    for a, b in zip(cg, cc):
+        if not torch.allclose(a, b, rtol=1e-3,
+                              atol=1e-3 * float(b.abs().max()) + 1e-12):
+            raise AssertionError("tiny SDS run carried gradients differ by "
+                                 f"{float((a - b).abs().max())}")
+    log(f"small reference sds: card losses {lg}, CPU losses {lc}, max param "
+        f"diff {worst} (limit {4 * lr})")
+
+
+# the SDS CLI's cuts of configs/synthetic_full.yaml: frames, epochs,
+# iterations and the diagnostics' cadence; warm-up off so the first virtual
+# slot runs SDS, and one guidance panel (host step 0); every width stays
+SDS_CLI_CUTS = {"data": {"synthetic_frames": 2},
+                "train": {"n_epochs": 1, "n_iters": 1, "warm_up_steps": 0},
+                "exp": {"test_interval": 1, "mesh_interval": 1,
+                        "mesh_all_interval": 1, "mesh_all_eval_interval": 1,
+                        "ckpt_interval": 0, "save_guidance": True,
+                        "save_guide_intervel": 50}}
+
+
+def sds_cli_phase(workdir: str) -> dict:
+    """python -m morpheus_tpu_torch --config configs/synthetic_full.yaml on
+    the card with SDS_CLI_CUTS (full-size "<random>" Zero123, bfloat16
+    UNet): one epoch, then `train --n_epochs 2`, which resumes. Checks
+    finite losses, the guidance panel, and that each checkpoint holds
+    pending_grads and host_step; returns the seconds of each part."""
+    import glob
+    import pickle
+
+    import cv2
+    import numpy as np
+    import yaml
+    with open(os.path.join(HERE, "configs", "synthetic_full.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    for section, kv in SDS_CLI_CUTS.items():
+        cfg[section].update(kv)
+    cfg["exp"].update(output=os.path.join(workdir, "exp"), exp_name="sds")
+    cfg_path = os.path.join(workdir, "synthetic_full_cli.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    log("sds cli phase: configs/synthetic_full.yaml cut to",
+        json.dumps(SDS_CLI_CUTS), "(then train --n_epochs 2)")
+    ws = os.path.join(cfg["exp"]["output"], cfg["exp"]["exp_name"])
+    runs = [_run_cli(cfg_path, extra, os.path.join(workdir,
+                                                   f"sds_cli_{i}.log"))
+            for i, extra in enumerate(([], ["train", "--n_epochs", "2"]))]
+    for r in runs:
+        if "Initialized RANDOM-weight Zero123 guidance (<random>)" not in r:
+            raise AssertionError("the CLI built no full-size guidance")
+    if f"Resumed from {ws}/models/model_ep_0001.pkl (epoch 1)" not in runs[1]:
+        raise AssertionError("the second SDS CLI run did not resume")
+    stats = [s for r in runs for s in _json_lines(r, "epoch-stats")]
+    losses = [s["loss"] for s in stats]
+    if [s["epoch"] for s in stats] != [1, 2] or not all(np.isfinite(losses)):
+        raise AssertionError(f"SDS CLI epochs {stats}")
+    launches = [_json_lines(r, "kernel-launches")[0] for r in runs]
+    if any(n["level_histogram"] < 11 for n in launches):
+        raise AssertionError(f"SDS CLI kernel launches {launches}")
+    panels = glob.glob(os.path.join(ws, "guidance", "000000_zero123_*.png"))
+    img = cv2.imread(panels[0]) if panels else None
+    if img is None or img.shape != (256, 4 * 256, 3):
+        raise AssertionError(f"guidance panel {panels}")
+    steps = []
+    for e in (1, 2):
+        with open(os.path.join(ws, "models", f"model_ep_000{e}.pkl"),
+                  "rb") as f:
+            st = pickle.load(f)
+        if set(st["pending_grads"]) != set(st["params"]):
+            raise AssertionError("a checkpoint without pending_grads")
+        steps.append((st["host_step"], st["global_step"]))
+    if steps != [(11, 11), (22, 22)]:
+        raise AssertionError(f"checkpoint (host_step, global_step) {steps}")
+    out = {"frames": cfg["data"]["synthetic_frames"],
+           "epoch_train_s": [s["train_s"] for s in stats], "losses": losses,
+           "kernel_launches": launches, "ckpt_steps": steps,
+           "panel": os.path.basename(panels[0]), "card": card_line()}
+    log("sds cli:", json.dumps(out))
+    return out
+
+
+# the CLI phase's cuts of configs/synthetic_bench.yaml: frames (2: the eval
+# worker's metric and the mesh videos take time per frame), epochs and the
+# diagnostics' cadence; every width stays the config's
+CLI_CUTS = {"data": {"synthetic_frames": 2},
             "train": {"n_epochs": 2, "n_iters": 1},
             "exp": {"test_interval": 2, "mesh_interval": 1,
                     "mesh_all_interval": 2, "mesh_all_eval_interval": 2}}
@@ -981,7 +1524,7 @@ def cli_phase(workdir: str) -> dict:
 
     want = (["mesh/init.ply"] + [f"mesh/mesh_000{e}.ply" for e in (1, 2, 3)]
             + [f"mesh_all/mesh_000{e}_000{i}.ply" for e in (2, 3)
-               for i in range(4)]
+               for i in range(cfg["data"]["synthetic_frames"])]
             + [f"results/test{n}_ep0002_{k}.mp4"
                for n in ("", "_180", "_cano", "_360", "_real")
                for k in ("rgb", "depth")]
@@ -1077,6 +1620,18 @@ def main() -> int:
 
 def run(device, card: str, workdir: str) -> int:
     import torch
+    if "--sds-only" in sys.argv[1:]:
+        from morpheus_tpu_torch.config import load_config
+        from morpheus_tpu_torch.data.dataset import load_synthetic
+        ds = load_synthetic(load_config(os.path.join(
+            HERE, "configs", "synthetic_full.yaml")))
+        sds, sds_rows = sds_phase(device, ds)
+        del ds
+        sds_small_reference(device)
+        sds_cli_phase(workdir)
+        log("sds only: the SDS phase, its kernel lines and the SDS CLI "
+            "passed", json.dumps({k: len(v) for k, v in sds_rows.items()}))
+        return 0
     if "--cli-only" in sys.argv[1:]:
         check_mesh_gather(device, workdir)
         cli_phase(workdir)
@@ -1111,15 +1666,22 @@ def run(device, card: str, workdir: str) -> int:
             rows[k] += r
         del calls
         torch.cuda.empty_cache()
+    # phase 8b: the SDS virtual step on the same scene
+    # (configs/synthetic_full.yaml has synthetic_bench's 32 frames at 360^2)
+    sds, sds_rows = sds_phase(device, ds)
+    for k, r in sds_rows.items():
+        rows[k] += r
     del ds
     for mode in PATH_KERNELS:
         small_reference(device, mode)
+    sds_small_reference(device)
     log("sort of sort_pallas_rows:", json.dumps(sort_row))
     log("step ms by mode:", json.dumps({m: r["real_step_ms"]
                                         for m, r in main.items()}))
     mesh_row = check_mesh_gather(device, workdir)
     rows["level_gather"].append(mesh_row)
     cli = cli_phase(workdir)
+    sds_cli = sds_cli_phase(workdir)
 
     def entry(name, replaces, mode):
         # the kernel's numbers at its largest captured call of a step under
@@ -1140,7 +1702,23 @@ def run(device, card: str, workdir: str) -> int:
                 "device_ms_per_launch": {
                     m: main[m]["trace"][f"{name}_ms_per_launch"]
                     for m, ks in PATH_KERNELS.items() if name in ks},
-                "cli_launches": [n[name] for n in cli["kernel_launches"]]}
+                "cli_launches": [n[name] for n in cli["kernel_launches"]],
+                "sds_launches": {f"epoch_{p['epoch']}": p["launches"][name]
+                                 for p in sds["points"]},
+                "sds_cli_launches": [n[name]
+                                     for n in sds_cli["kernel_launches"]],
+                "sds_case": sds_case(name, mode)}
+
+    def sds_case(name, mode):
+        # the kernel's largest call of the SDS step (scale 0.5) under its
+        # mode, on the step_sds_<mode>_* lines
+        step = [r for r in rows[name]
+                if r["case"].startswith(f"step_sds_{mode}_")]
+        row = max(step, key=lambda r: r["L"] * r["Np"] * r["C"]
+                  if "Np" in r else r["N"] * r["C"])
+        return {k: row[k] for k in ("case", "max_abs_err", "ms", "call_ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}
 
     kernels_line = {"kernels": [
         entry("level_histogram", "morpheus_tpu/ops/hist_pallas.py:105",
@@ -1154,6 +1732,11 @@ def run(device, card: str, workdir: str) -> int:
         k: mesh_row[k] for k in ("case", "launches", "L", "Np", "C", "S",
                                  "max_abs_err", "ms", "call_ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")}
+    log("sds:", json.dumps({"setup": sds["setup"], "points": [
+        {k: p[k] for k in ("epoch", "rays", "freeze", "active_levels",
+                           "sds_step_ms", "peak_mem_gb", "launches_per_step",
+                           "trace")}
+        for p in sds["points"]], "cli": sds_cli}))
     log(card)
     log(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

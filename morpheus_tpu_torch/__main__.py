@@ -4,7 +4,8 @@ morpheus.py (reference: morpheus.py:1522-1554):
     python -m morpheus_tpu_torch --config configs/snoopy.yaml \\
         [--device cuda|cpu] [section --key value ...]
 
-Orchestrates per-scene optimisation with periodic diagnostics, as
+Orchestrates per-scene optimisation, with Zero123 SDS guidance when the
+config asks for it (build_guidance), and periodic diagnostics, as
 morpheus.py:82-330 does: init mesh, test videos every test_interval,
 canonical mesh every mesh_interval, per-frame meshes, mesh videos and the
 detached 3-D metric worker every mesh_all_interval, checkpoints, and resume
@@ -70,16 +71,13 @@ def _mem_note(device: torch.device) -> str:
 
 
 def _check_unported(config, log) -> None:
-    """Guidance and the CLIP eval are not ported: a configuration that
-    asks for them raises; a Zero123 checkpoint path that does not exist
-    trains recon-only with the reference's warning (morpheus.py:123-184)."""
+    """The CLIP eval is not ported: a configuration that asks for it
+    raises. A Zero123 checkpoint path that does not exist trains
+    recon-only with the reference's warning (morpheus.py:159-161)."""
     gd = config["guidance"]
     ckpt = gd.get("zero123_ckpt")
-    if gd["model"] and ckpt:
-        if ckpt in ("<random>", "<random-tiny>") or os.path.exists(ckpt):
-            raise NotImplementedError(
-                f"guidance.zero123_ckpt {ckpt!r}: Zero123 SDS guidance is "
-                "not ported yet (ROADMAP.md queue A, items A9-A10)")
+    if gd["model"] and ckpt and ckpt not in ("<random>", "<random-tiny>") \
+            and not os.path.exists(ckpt):
         log(f"[warn] zero123 ckpt not found at {ckpt}; "
             "training recon-only (no SDS)")
     clip_ckpt = config["exp"].get("clip_ckpt", "")
@@ -87,6 +85,42 @@ def _check_unported(config, log) -> None:
         raise NotImplementedError(
             f"exp.clip_ckpt {clip_ckpt!r}: the CLIP eval is not ported yet "
             "(ROADMAP.md queue A, item A11)")
+
+
+def build_guidance(config, device, log):
+    """The Zero123 guidance a configuration asks for, on `device`, as
+    morpheus.py:123-165 builds it: zero123_ckpt "<random>" is a full-size
+    random-weight Zero123 (the whole SDS path at its real cost, with no
+    checkpoint at hand), "<random-tiny>" a small one with every layer type
+    (for driving the SDS path on the CPU), an existing path a real
+    checkpoint (its architecture from guidance.zero123_config when that
+    file exists); guidance.compute_dtype applies in each case. A path that
+    does not exist (_check_unported warns of it), no guidance.model or no
+    zero123_ckpt means no guidance (None)."""
+    import dataclasses
+
+    from .guidance.checkpoint import load_zero123_checkpoint
+    from .guidance.zero123 import TINY_SPEC, Zero123Guidance, Zero123Spec
+    gd = config["guidance"]
+    ckpt = gd.get("zero123_ckpt")
+    if not (gd["model"] and ckpt):
+        return None
+    dtype = gd.get("compute_dtype", "float32")
+    if ckpt in ("<random>", "<random-tiny>"):
+        spec = TINY_SPEC if ckpt == "<random-tiny>" else Zero123Spec()
+        g = Zero123Guidance.init_random(
+            dataclasses.replace(spec, compute_dtype=dtype), device)
+        log(f"Initialized RANDOM-weight Zero123 guidance ({ckpt})")
+        return g
+    if os.path.exists(ckpt):
+        zcfg = gd.get("zero123_config", "")
+        spec = (Zero123Spec.from_ldm_config(zcfg)
+                if zcfg and os.path.exists(zcfg) else Zero123Spec())
+        g = load_zero123_checkpoint(
+            ckpt, dataclasses.replace(spec, compute_dtype=dtype), device)
+        log(f"Loaded Zero123 guidance from {ckpt}")
+        return g
+    return None
 
 
 def _kernel_launches() -> dict:
@@ -144,7 +178,10 @@ def _run(config, device, workspace, log):
         dataset.data_dir = write_backproj_meshes(
             scene, os.path.join(workspace, "gt_synth"))
 
-    trainer = Trainer(config, dataset, device=device, workspace=workspace)
+    guidance = build_guidance(config, device, log)
+    trainer = Trainer(config, dataset, device=device, guidance=guidance,
+                      workspace=workspace)
+    del guidance           # the trainer holds it (its CLIP tower on the host)
 
     # resume from the newest workspace checkpoint unless told otherwise
     # (preemption recovery; the reference only writes a final ckpt)

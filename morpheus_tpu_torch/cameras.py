@@ -1,12 +1,17 @@
 """Camera and ray math (reference: datasets/utils.py, datasets/dataset.py).
 
 numpy versions for host-side scene set-up and torch versions for what runs
-inside a training step (the per-frame pose correction).
+inside a training step (the per-frame pose correction, the virtual camera
+of the SDS step: port of morpheus_tpu/cameras.py:49-152).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from .utils import safe_normalize
 
 
 def get_camera_rays(H: int, W: int, fx, fy=None, cx=None, cy=None
@@ -72,3 +77,84 @@ def euler_to_rotation(rotations: torch.Tensor) -> torch.Tensor:
     col3 = torch.stack([ca * sb * cg + sa * sg, sa * sb * cg - ca * sg,
                         cb * cg], -1)
     return torch.stack([col1, col2, col3], -1)
+
+
+# ---- torch: the virtual camera of the SDS step -------------------------------
+
+def look_at(cam_centers: torch.Tensor, targets=0.0) -> torch.Tensor:
+    """OpenGL look-at camera-to-world matrices (B, 4, 4), keeping the
+    chirality (ref: dataset.py:225-266); the torch form of
+    c2w_from_cam_center, with targets."""
+    forward = safe_normalize(cam_centers - targets)
+    up = torch.tensor([0.0, 1.0, 0.0], device=cam_centers.device,
+                      dtype=cam_centers.dtype).expand(forward.shape)
+    right = safe_normalize(torch.linalg.cross(up, forward, dim=-1))
+    up = safe_normalize(torch.linalg.cross(forward, right, dim=-1))
+    rot = torch.stack((right, up, forward), dim=-1)             # (B, 3, 3)
+    top = torch.cat([rot, cam_centers[..., None]], -1)          # (B, 3, 4)
+    last = torch.tensor([0.0, 0.0, 0.0, 1.0], device=top.device,
+                        dtype=top.dtype).expand(top.shape[0], 1, 4)
+    return torch.cat([top, last], 1)
+
+
+def polar_to_cam_center(radius, theta_rad, phi_rad) -> torch.Tensor:
+    """Spherical to cartesian with the reference's y-up convention
+    (ref: dataset.py:312-316)."""
+    return torch.stack([radius * torch.sin(theta_rad) * torch.sin(phi_rad),
+                        radius * torch.cos(theta_rad),
+                        radius * torch.sin(theta_rad) * torch.cos(phi_rad)],
+                       dim=-1)
+
+
+def get_view_direction(thetas_rad: torch.Tensor, phis_rad: torch.Tensor,
+                       overhead_rad: float, front_rad: float
+                       ) -> torch.Tensor:
+    """Discrete view direction (0 front, 1 side, 2 back, 3 side, 4 top, 5
+    bottom), int64 (B,) (ref: datasets/utils.py:70-91)."""
+    two_pi = 2.0 * math.pi
+    phis = torch.remainder(phis_rad, two_pi)
+    res = torch.zeros(thetas_rad.shape[0], dtype=torch.long,
+                      device=thetas_rad.device)
+    res = torch.where((phis >= math.pi + front_rad / 2)
+                      & (phis < two_pi - front_rad / 2), 1, res)
+    res = torch.where((phis >= math.pi - front_rad / 2)
+                      & (phis < math.pi + front_rad / 2), 2, res)
+    res = torch.where((phis >= front_rad / 2)
+                      & (phis < math.pi - front_rad / 2), 3, res)
+    res = torch.where(thetas_rad <= overhead_rad, 4, res)
+    return torch.where(thetas_rad >= math.pi - overhead_rad, 5, res)
+
+
+def _deg2rad(x) -> np.float32:
+    return np.float32(x) * np.float32(math.pi / 180.0)
+
+
+def sample_virtual_camera(draws, radius: torch.Tensor, theta_range_deg,
+                          phi_range_deg, uniform_sphere_rate: float = 0.0):
+    """One random virtual camera (ref: dataset.py:435-501): polar angles
+    uniform in the ranges (degrees), or, with probability
+    uniform_sphere_rate, a direction uniform on the upper hemisphere.
+    Draws: 'cam_theta' (1,), 'cam_phi' (1,), 'cam_sphere' (1, 3) and
+    'cam_sphere_pick' (). Returns (c2w (1, 4, 4), theta_deg (1,), phi_deg
+    (1,)), all on radius's device."""
+    th_lo, th_hi = (_deg2rad(a) for a in theta_range_deg)
+    ph_lo, ph_hi = (_deg2rad(a) for a in phi_range_deg)
+    two_pi = 2 * math.pi
+
+    theta_r = draws.uniform("cam_theta", (1,)) * float(th_hi - th_lo) \
+        + float(th_lo)
+    phi_r = draws.uniform("cam_phi", (1,)) * float(ph_hi - ph_lo) \
+        + float(ph_lo)
+    phi_r = torch.where(phi_r < 0, phi_r + two_pi, phi_r)
+
+    g = draws.normal("cam_sphere", (1, 3))
+    unit = safe_normalize(torch.stack([g[:, 0], g[:, 1].abs(), g[:, 2]], -1))
+    theta_u = torch.arccos(torch.clamp(unit[:, 1], -1.0, 1.0))
+    phi_u = torch.atan2(unit[:, 0], unit[:, 2])
+    phi_u = torch.where(phi_u < 0, phi_u + two_pi, phi_u)
+
+    use_uniform = draws.uniform("cam_sphere_pick", ()) < uniform_sphere_rate
+    theta = torch.where(use_uniform, theta_u, theta_r)
+    phi = torch.where(use_uniform, phi_u, phi_r)
+    c2w = look_at(polar_to_cam_center(radius, theta, phi))
+    return c2w, torch.rad2deg(theta), torch.rad2deg(phi)

@@ -4,9 +4,10 @@
 The port's own copy of morpheus_tpu/config.py (same keys, same defaults), so
 that the two packages read the same YAML files identically. The ``tpu``
 section keeps its name: most of its keys are semantic (sample budgets, march
-steps, occupancy cadence, gradient payload type), and the few that only
-steered TPU dispatch (``chain_steps``, ``donate_state``, ``remat_virtual``)
-are accepted and ignored by the port.
+steps, occupancy cadence, gradient payload type), ``remat_virtual``
+becomes torch.utils.checkpoint of the virtual render and the VAE encoder,
+and the two that only steered TPU dispatch (``chain_steps``,
+``donate_state``) are accepted and ignored by the port.
 """
 from __future__ import annotations
 

@@ -189,9 +189,9 @@ def full_frame_rays(data: dict, num_frames: int, frame_idx: int) -> dict:
 
 class VirtualViewSampler:
     """Virtual-view rays at a fixed novel-view scale (reference:
-    dataset.py:435-578). The port has the fixed-angle form that the test
-    videos render; the random camera of the SDS virtual step is not ported
-    yet (ROADMAP.md queue A, item A10)."""
+    dataset.py:435-578): a random frame and a random camera on its orbit
+    (the SDS virtual step; the draws stay on the device), or a given frame
+    at given polar angles (the test videos; host arithmetic)."""
 
     def __init__(self, dataset: DeformDataset, config: dict, scale: float,
                  device):
@@ -207,32 +207,90 @@ class VirtualViewSampler:
         self.radius = np.asarray(dataset.radius, np.float32)
         self.theta = np.asarray(dataset.theta, np.float32)
         self.phi = np.asarray(dataset.phi, np.float32)
+        # the per-frame orbit (radius, polar, azimuth) on the device, read
+        # by index_select with the drawn frame
+        self.orbit = torch.as_tensor(np.stack(
+            [self.radius, self.theta, self.phi], -1), device=device)
 
     def sample(self, frame_idx: int | None = None, theta_deg=None,
-               phi_deg=None) -> dict:
-        """Rays of a camera on the frame's orbit at the given polar angles
-        (degrees; reference get_c2w_from_polar path, dataset.py:526-532),
-        and the angles' differences from the frame's real view."""
-        if frame_idx is None or theta_deg is None or phi_deg is None:
-            raise NotImplementedError(
-                "random virtual cameras (the SDS virtual step) are not "
-                "ported yet (ROADMAP.md queue A, item A10)")
-        radius = self.radius[frame_idx] * np.float32(
-            self.config["data"]["novel_view_scale_factor"])
-        thetas = np.asarray(theta_deg, np.float32).reshape(1)
-        phis = np.asarray(phi_deg, np.float32).reshape(1)
-        pose = torch.as_tensor(cameras.c2w_from_polar(radius, thetas, phis)[0],
-                               device=self.device)
-        out = _pose_rays(pose, self.rays_d_cam, frame_idx, self.num_frames)
-        delta_azimuth = phis - self.phi[frame_idx]
-        delta_azimuth = np.where(delta_azimuth > 180, delta_azimuth - 360,
-                                 delta_azimuth)
-        out.update({
-            "polar": thetas - self.theta[frame_idx],
-            "azimuth": delta_azimuth.astype(np.float32),
-            "radius": np.reshape(radius - self.radius[frame_idx], (1,)),
-            "frame_idx": frame_idx, "H": self.H, "W": self.W})
-        return out
+               phi_deg=None, *, draws=None, radius_scale=None,
+               theta_range=None, phi_range=None) -> dict:
+        """Rays of one camera and its offsets from the frame's real view
+        (polar, azimuth: degrees, azimuth wrapped to (-180, 180]; radius).
+        With theta_deg and phi_deg, the camera at those polar angles
+        (reference get_c2w_from_polar, dataset.py:526-532) of frame
+        frame_idx; without, a random camera (cameras.sample_virtual_camera
+        with draws) of frame frame_idx, or of a random frame (draw
+        'vframe'), the angles in theta_range and phi_range (degrees; the
+        config's data.theta_range and data.phi_range by default).
+        radius_scale scales the orbit's radius."""
+        data = self.config["data"]
+        if theta_deg is not None and frame_idx is not None:
+            radius = self.radius[frame_idx] * np.float32(
+                data["novel_view_scale_factor"])
+            if radius_scale is not None:
+                radius = radius * np.float32(radius_scale)
+            thetas = np.asarray(theta_deg, np.float32).reshape(1)
+            phis = np.asarray(phi_deg, np.float32).reshape(1)
+            pose = torch.as_tensor(
+                cameras.c2w_from_polar(radius, thetas, phis)[0],
+                device=self.device)
+            out = _pose_rays(pose, self.rays_d_cam, frame_idx,
+                             self.num_frames)
+            delta_azimuth = phis - self.phi[frame_idx]
+            delta_azimuth = np.where(delta_azimuth > 180, delta_azimuth - 360,
+                                     delta_azimuth)
+            out.update({
+                "polar": thetas - self.theta[frame_idx],
+                "azimuth": delta_azimuth.astype(np.float32),
+                "radius": np.reshape(radius - self.radius[frame_idx], (1,)),
+                "frame_idx": frame_idx, "H": self.H, "W": self.W})
+            return out
+        return self._sample_device(draws, frame_idx, theta_deg, phi_deg,
+                                   radius_scale, theta_range, phi_range)
+
+    def _sample_device(self, draws, frame_idx, theta_deg, phi_deg,
+                       radius_scale, theta_range, phi_range) -> dict:
+        data = self.config["data"]
+        nf = self.num_frames
+        if draws is None and (frame_idx is None or theta_deg is None):
+            raise ValueError("a random frame or camera needs draws")
+        if frame_idx is None:
+            frame = draws.randint("vframe", (), 0, nf).to(self.device)
+        else:
+            frame = torch.tensor(frame_idx, device=self.device)
+        f = frame.reshape(1).long()
+        orbit = self.orbit.index_select(0, f)[0]              # (3,)
+        radius = orbit[0] * float(np.float32(data["novel_view_scale_factor"]))
+        if radius_scale is not None:
+            radius = radius * float(np.float32(radius_scale))
+        if theta_deg is None:
+            c2w, thetas, phis = cameras.sample_virtual_camera(
+                draws, radius,
+                theta_range if theta_range is not None
+                else data["theta_range"],
+                phi_range if phi_range is not None else data["phi_range"],
+                data["uniform_sphere_rate"])
+        else:
+            thetas = torch.tensor(theta_deg, dtype=torch.float32,
+                                  device=self.device).reshape(1)
+            phis = torch.tensor(phi_deg, dtype=torch.float32,
+                                device=self.device).reshape(1)
+            c2w = cameras.look_at(cameras.polar_to_cam_center(
+                radius, torch.deg2rad(thetas), torch.deg2rad(phis)))
+        pose = c2w[0]
+        N = self.rays_d_cam.shape[0]
+        delta_azimuth = phis - orbit[2]
+        delta_azimuth = torch.where(delta_azimuth > 180, delta_azimuth - 360,
+                                    delta_azimuth)
+        return {
+            "rays_o": pose[:3, 3].expand(N, 3),
+            "rays_d": (self.rays_d_cam[..., None, :] * pose[:3, :3]).sum(-1),
+            "rays_t": (frame.float() / nf).reshape(1, 1).expand(N, 1),
+            "rays_id": f.expand(N),
+            "polar": thetas - orbit[1], "azimuth": delta_azimuth,
+            "radius": (radius - orbit[0]).reshape(1), "frame_idx": frame,
+            "H": self.H, "W": self.W}
 
 
 def load_synthetic(config: dict) -> DeformDataset:

@@ -60,17 +60,35 @@ def _inflight_path(workspace: str, epoch: int) -> str:
     return os.path.join(workspace, f".eval_inflight_{epoch:04d}")
 
 
+def _reap(pid: int) -> bool:
+    """True when `pid` is a child of this process that has exited; it is
+    reaped here, so a dead worker is no zombie that os.kill(pid, 0) would
+    report alive. False for a live child and for any other process."""
+    try:
+        done, _ = os.waitpid(pid, os.WNOHANG)
+    except ChildProcessError:     # not this process's child, or reaped
+        return False
+    return bool(done)
+
+
 def _inflight_alive(workspace: str, epoch: int) -> bool:
+    """Whether the worker named in the epoch's inflight pidfile still runs.
+    A worker that exited - a zombie child of this process included, which
+    os.kill(pid, 0) would report alive - counts as dead, and its stale
+    pidfile is removed."""
     path = _inflight_path(workspace, epoch)
     try:
         with open(path) as f:
             pid = int(f.read().strip())
     except (OSError, ValueError):
         return False
-    try:
-        os.kill(pid, 0)
-    except OSError:
-        # stale pidfile from a dead worker — clean it up
+    dead = _reap(pid)
+    if not dead:
+        try:
+            os.kill(pid, 0)
+        except OSError:
+            dead = True
+    if dead:
         try:
             os.remove(path)
         except OSError:
@@ -116,15 +134,21 @@ def run_eval_detached(workspace: str, epochs: list[int], log=None):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
     logf = open(os.path.join(workspace, "eval_worker.log"), "a")
+    # the worker waits for one line on its stdin before it starts, so the
+    # pidfiles exist before it can finish (and remove them)
     proc = subprocess.Popen(
         [sys.executable, "-m", "morpheus_tpu_torch.eval.backfill", workspace]
         + [str(e) for e in epochs],
-        env=env, cwd=root, stdout=logf, stderr=subprocess.STDOUT,
-        start_new_session=True)
+        env=env, cwd=root, stdin=subprocess.PIPE, stdout=logf,
+        stderr=subprocess.STDOUT, start_new_session=True)
     logf.close()
-    for e in epochs:
-        with open(_inflight_path(workspace, e), "w") as f:
-            f.write(str(proc.pid))
+    try:
+        for e in epochs:
+            with open(_inflight_path(workspace, e), "w") as f:
+                f.write(str(proc.pid))
+    finally:
+        proc.stdin.write(b"go\n")
+        proc.stdin.close()
     if log:
         log(f"[eval] detached worker pid={proc.pid} for epochs {epochs}")
     return proc
@@ -178,6 +202,13 @@ def _build_dataset(workspace: str):
     return dataset
 
 
+def _remove_inflight(workspace: str, epoch: int) -> None:
+    try:
+        os.remove(_inflight_path(workspace, epoch))
+    except OSError:
+        pass
+
+
 def _worker_main(argv=None):
     """``python -m morpheus_tpu_torch.eval.backfill <workspace> <epoch>...``
     Prints the seconds each epoch took ('[eval worker] epoch E: done in S
@@ -185,33 +216,38 @@ def _worker_main(argv=None):
     import time
     argv = argv if argv is not None else sys.argv[1:]
     workspace, epochs = argv[0], [int(e) for e in argv[1:]]
-    from .culling import eval_depthL1, eval_mesh
-    t0 = time.perf_counter()
-    dataset = _build_dataset(workspace)
-    print(f"[eval worker] dataset in {time.perf_counter() - t0:.3f} s",
-          flush=True)
-    mesh_all_dir = os.path.join(workspace, "mesh_all")
-    for epoch in epochs:
+    sys.stdin.readline()         # run_eval_detached has written the pidfiles
+    try:
+        from .culling import eval_depthL1, eval_mesh
         t0 = time.perf_counter()
-        try:
-            print(f"[eval worker] epoch {epoch}: eval_mesh", flush=True)
-            eval_mesh(workspace, mesh_all_dir, dataset,
-                      f"mesh_{epoch:04d}", epoch)
-            depth_dir = os.path.join(workspace, "depths",
-                                     f"depths_{epoch:04d}")
-            if os.path.exists(os.path.join(depth_dir, "depths.npz")):
-                print(f"[eval worker] epoch {epoch}: eval_depthL1",
-                      flush=True)
-                eval_depthL1(depth_dir, dataset, epoch=epoch)
-            print(f"[eval worker] epoch {epoch}: done in "
-                  f"{time.perf_counter() - t0:.3f} s", flush=True)
-        except Exception as e:  # one bad epoch must not lose the others
-            print(f"[eval worker] epoch {epoch} FAILED: {e!r}", flush=True)
-        finally:
+        dataset = _build_dataset(workspace)
+        print(f"[eval worker] dataset in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        mesh_all_dir = os.path.join(workspace, "mesh_all")
+        for epoch in epochs:
+            t0 = time.perf_counter()
             try:
-                os.remove(_inflight_path(workspace, epoch))
-            except OSError:
-                pass
+                print(f"[eval worker] epoch {epoch}: eval_mesh", flush=True)
+                eval_mesh(workspace, mesh_all_dir, dataset,
+                          f"mesh_{epoch:04d}", epoch)
+                depth_dir = os.path.join(workspace, "depths",
+                                         f"depths_{epoch:04d}")
+                if os.path.exists(os.path.join(depth_dir, "depths.npz")):
+                    print(f"[eval worker] epoch {epoch}: eval_depthL1",
+                          flush=True)
+                    eval_depthL1(depth_dir, dataset, epoch=epoch)
+                print(f"[eval worker] epoch {epoch}: done in "
+                      f"{time.perf_counter() - t0:.3f} s", flush=True)
+            except Exception as e:  # one bad epoch must not lose the others
+                print(f"[eval worker] epoch {epoch} FAILED: {e!r}",
+                      flush=True)
+            finally:
+                _remove_inflight(workspace, epoch)
+    finally:
+        # any exit - the dataset failing to build included - leaves no
+        # inflight file of this worker's epochs behind
+        for epoch in epochs:
+            _remove_inflight(workspace, epoch)
     print("[eval worker] done", flush=True)
 
 

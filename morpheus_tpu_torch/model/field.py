@@ -319,6 +319,8 @@ class Field(nn.Module):
                 compute_normals: bool = True, max_level=None,
                 extra_normal_x=None):
         """(sdf, sigma, color, normal, deform, normal_raw[, normal_extra]).
+        shading_id is a host int, or a 0-d device tensor (and ratio then
+        may be one too).
 
         extra_normal_x (E, 3): further canonical sites (topo zero) whose
         normals ride the same encode and gradient closure as the samples;
@@ -363,7 +365,18 @@ class Field(nn.Module):
         alb = self._color(x_cano, enc_col, geo_feat, max_level)
         n = torch.nan_to_num(safe_normalize(n_raw))
 
-        if shading_id == SHADING_ALBEDO:
+        if isinstance(shading_id, torch.Tensor):
+            # drawn on the device (the virtual step): every shading, then
+            # a select, as the JAX forward does for a traced shading_id
+            lambertian = ratio + (1.0 - ratio) * torch.clamp(
+                (n * light_d).sum(-1), min=0.0)
+            color = torch.where(
+                shading_id == SHADING_ALBEDO, alb, torch.where(
+                    shading_id == SHADING_TEXTURELESS,
+                    lambertian[..., None].expand(alb.shape), torch.where(
+                        shading_id == SHADING_NORMAL, (n + 1.0) / 2.0,
+                        alb * lambertian[..., None])))
+        elif shading_id == SHADING_ALBEDO:
             color = alb
         else:
             lambertian = ratio + (1.0 - ratio) * torch.clamp(

@@ -1,5 +1,5 @@
-"""Volume renderer with its inline regularizers: the real-view training
-path and the eval renders (port of morpheus_tpu/renderer.py: render_rays
+"""Volume renderer with its inline regularizers: the real- and virtual-view
+training paths and the eval renders (port of morpheus_tpu/renderer.py: render_rays
 with merge_smooth and band_reuse, its cano/real_view flags and background,
 _ortho_normal_dir, _band_reuse_normal_smoothness).
 
@@ -204,6 +204,11 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
                                                                     v_s)
         if normal_raw is not None:
             out["normal_raw_eik"] = losses.eikonal_loss(normal_raw, valid)
+        if rcfg.normal_smooth_2d and not real_view:
+            # the rendered normal image of the 2-D smoothness
+            # (morpheus.py:773-776)
+            out["normal_image"] = volrender.flat_accumulate(
+                weights, (normals + 1.0) / 2.0, seg)
 
     if rcfg.code_reg and not cano:
         t0 = rays_t[:1]

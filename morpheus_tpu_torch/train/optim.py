@@ -1,6 +1,7 @@
 """Per-group Adam with the reference's betas/eps, the GradScaler-style skip
-of non-finite updates, and the parameter EMA
-(port of morpheus_tpu/train/optim.py: adam_update, ema_update).
+of non-finite updates, the virtual step's deform freeze, and the parameter
+EMA (port of morpheus_tpu/train/optim.py: FREEZE_GROUPS, adam_update,
+ema_update).
 
 The update runs on the device with no host synchronisation: the skip is a
 select between the new and the old state, as in the reference's compiled
@@ -18,6 +19,10 @@ GROUP_MULTIPLIERS = {
     "pose": 0.1, "bg_net": 1.0, "app_code": 1.0,
 }
 
+# groups the virtual step does not move while the deformation field is
+# frozen (morpheus.py:504-511); their moments still update
+FREEZE_GROUPS = ("deform_code", "deform_net", "topo_net")
+
 
 def group_of(name: str) -> str:
     """Top-level group of a parameter name ('deform_net.layers.0.weight'
@@ -29,7 +34,9 @@ class Adam:
     """torch.optim.Adam-like semantics of the reference's adam_update:
     p -= lr*mult * (m/bc1) / (sqrt(v/bc2) + eps), b1 0.9, b2 0.99, eps 1e-15.
     An update whose gradients are not all finite leaves the parameters and
-    the moments (and the step count) as they were."""
+    the moments (and the step count) as they were. Frozen groups take a
+    zero learning rate: their parameters stay, their moments and the step
+    count move (optim.py:62-82 of the JAX package)."""
 
     def __init__(self, named_params, b1: float = 0.9, b2: float = 0.99,
                  eps: float = 1e-15):
@@ -44,15 +51,17 @@ class Adam:
         self.nu = [torch.zeros_like(p) for p in self.params]
 
     @torch.no_grad()
-    def update(self, grads, lr) -> torch.Tensor:
-        """Apply one step with base learning rate `lr`; returns the on-device
-        flag of whether it was applied. The arithmetic is the reference's,
+    def update(self, grads, lr, frozen=(), ok=None) -> torch.Tensor:
+        """Apply one step with base learning rate `lr`, the groups in
+        `frozen` at rate 0; returns the on-device flag of whether it was
+        applied. `ok` (a device bool) also gates the step, as the
+        gradients' own finiteness does. The arithmetic is the reference's,
         op for op, in multi-tensor (foreach) launches."""
         # the GradScaler's fused check, with an unscale by exactly 1.0
         found = torch.zeros((), dtype=torch.float32, device=self.step.device)
         torch._amp_foreach_non_finite_check_and_unscale_(
             grads, found, torch.ones_like(found))
-        ok = found == 0.0
+        ok = (found == 0.0) if ok is None else (found == 0.0) & ok
         b1, b2 = self.b1, self.b2
         t = self.step + 1.0
         bc1 = 1.0 - torch.pow(b1, t)
@@ -67,8 +76,9 @@ class Adam:
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         upd = torch._foreach_div(mu, bc1)
-        torch._foreach_mul_(upd, [float(m * np.float32(lr))
-                                  for m in self.mult])
+        torch._foreach_mul_(upd, [
+            0.0 if group_of(n) in frozen else float(m * np.float32(lr))
+            for n, m in zip(self.names, self.mult)])
         torch._foreach_div_(upd, den)
         new = torch._foreach_sub(self.params, upd)
         for dst, src in ((self.params, new), (self.mu, mu), (self.nu, nu)):

@@ -1,16 +1,21 @@
-"""Per-scene optimisation, real-view step (port of
-morpheus_tpu/train/trainer.py: Trainer construction, the occupancy cadence,
-_real_loss / real_loss_from_batch / _reg_loss, the real step with its
-non-finite skip, _active_levels and the epoch loop).
+"""Per-scene optimisation (port of morpheus_tpu/train/trainer.py: Trainer
+construction, the occupancy cadence, the real step, the Zero123 SDS
+virtual step, _active_levels and the epoch loop).
 
     trainer = Trainer(config, dataset)          # device="cuda" by default
+    trainer = Trainer(config, dataset, guidance=Zero123Guidance...)  # SDS
     loss = trainer.train_one_epoch()
     trainer.save_ckpt(path); trainer.load_ckpt(path)
 
 One real step: draw a ray batch, refresh the occupancy grid on its cadence,
-render with all regularizers, take the gradient of the weighted loss and
-apply Adam unless a gradient is non-finite. The step makes no host
-synchronisation; the epoch loop reads the loss once at its end.
+render with all regularizers, take the gradient of the weighted loss, add
+the virtual steps' pending gradients and apply Adam unless a gradient is
+non-finite. One virtual step (with guidance): draw a camera around a
+random frame, render the whole view, score it with Zero123's SDS against
+a keyframe, and either step Adam with the deformation groups frozen
+(while curriculum.freeze_deform) or add the gradients to pending_grads,
+which the next real step folds in. Neither step synchronises with the
+host; the epoch loop reads the loss once at its end.
 
 A checkpoint (save_ckpt, load_ckpt: the port of morpheus_tpu/train/
 trainer.py:919-955) is a pickle of plain dicts, lists, numpy arrays and
@@ -26,10 +31,12 @@ import time
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from .. import renderer
 from ..data import dataset as data_lib
-from ..model.field import SHADING_LAMBERTIAN, Field, FieldSpec
+from ..model.field import (SHADING_ALBEDO, SHADING_LAMBERTIAN,
+                           SHADING_TEXTURELESS, Field, FieldSpec)
 from ..ops import density as density_lib
 from ..ops import occupancy
 from ..ops.hashgrid import HashGridSpec, active_count
@@ -40,15 +47,60 @@ from .schedule import Curriculum
 OCC_CHUNK = 32768
 
 
+class RecordedDraws:
+    """Draws that a recomputation replays: the first pass through a
+    checkpointed region records every draw, each later pass (a backward's
+    recomputation, or one that an autograd.grad inside the region starts
+    while the first pass runs) reads the same values back in the same order
+    from a cursor of its own. torch.utils.checkpoint restores the global
+    generators only, not a draw source's own."""
+
+    def __init__(self, draws):
+        self.draws, self.values, self.started = draws, [], False
+
+    def start(self):
+        if not self.started:
+            self.started = True
+            return self
+        return _Replay(self.values)
+
+    def uniform(self, name, shape):
+        return self._keep(self.draws.uniform(name, shape))
+
+    def normal(self, name, shape):
+        return self._keep(self.draws.normal(name, shape))
+
+    def randint(self, name, shape, low, high):
+        return self._keep(self.draws.randint(name, shape, low, high))
+
+    def _keep(self, v):
+        self.values.append(v)
+        return v
+
+
+class _Replay:
+    def __init__(self, values):
+        self.values, self.i = values, 0
+
+    def _next(self, *_):
+        self.i += 1
+        return self.values[self.i - 1]
+
+    uniform = normal = randint = _next
+
+
 class Trainer:
     def __init__(self, config: dict, dataset: data_lib.DeformDataset,
                  device="cuda", seed: int | None = None,
                  draws: Draws | None = None, guidance=None,
                  workspace: str | None = None):
-        if guidance is not None:
-            raise NotImplementedError(
-                "guidance (Zero123 SDS virtual steps) is not ported yet "
-                "(ROADMAP.md queue A, items A9-A10)")
+        """guidance: a guidance.zero123.Zero123Guidance on `device` (SDS
+        virtual steps); None trains recon-only, its virtual slots running
+        real steps as the reference's do."""
+        from ..guidance.zero123 import Zero123Guidance
+        if guidance is not None and not isinstance(guidance, Zero123Guidance):
+            raise TypeError(f"guidance: a Zero123Guidance, not "
+                            f"{type(guidance).__name__}")
         if int(config["tpu"].get("data_parallel", 1)) > 1:
             raise NotImplementedError(
                 "tpu.data_parallel > 1 is not ported yet (ROADMAP.md queue A, "
@@ -96,8 +148,20 @@ class Trainer:
         self._reset_state()
         self.occ = occupancy.init_occupancy(tpu["occ_resolution"], self.device)
         self.global_step = 0
+        # optimizer steps of the epoch loop, real and virtual, counted on
+        # the host: the warm-up gate and the guidance-panel cadence read it
+        self.host_step = 0
         self.epoch = 0
         self._set_levels(None)
+        self._samplers: dict = {}
+        self.guidance = guidance
+        self.embeddings = None
+        if guidance is not None:
+            self.embeddings = self.precompute_embeddings(guidance)
+            # the CLIP tower serves only that one pass: on the card its
+            # ViT-L/14 weights (~1.2 GB) would stay for the whole run, so
+            # it moves to the host (trainer.py:130-140 of the JAX package)
+            guidance.clip.to("cpu")
 
     def _reset_state(self):
         named = list(self.field.named_parameters())
@@ -107,10 +171,16 @@ class Trainer:
         # test videos render
         self.ema_field = copy.deepcopy(self.field).requires_grad_(False)
         self.ema = list(self.ema_field.parameters())
+        # virtual-step gradients carried into the next real step once the
+        # deform freeze ends (the reference accumulates .grad across the
+        # virtual-to-real boundary, morpheus.py:1393-1424); _pending_live
+        # says whether any was added since the last real step
+        self.pending = [torch.zeros_like(p) for p in self.params]
+        self._pending_live = False
 
     def load_params(self, state: dict):
         """Load parameters by name (see convert.params_from_jax); resets the
-        optimizer moments and the EMA."""
+        optimizer moments, the EMA and the pending gradients."""
         self.field.load_state_dict(
             {k: torch.as_tensor(v) for k, v in state.items()})
         self._reset_state()
@@ -258,6 +328,197 @@ class Trainer:
                 out["weights"], out["mask"])
         return loss
 
+    # ---- Zero123 SDS virtual step ----
+
+    @torch.no_grad()
+    def precompute_embeddings(self, guidance) -> dict:
+        """Per-keyframe CLIP embeddings and VAE latents of the masked
+        frames at the guidance's image size (reference get_embeddings,
+        morpheus.py:218-277): keyframes every kf_every frames plus the last
+        frame; each frame's nearest keyframe."""
+        import cv2
+
+        from ..guidance import zero123 as z123
+        ds = self.dataset
+        kf = np.arange(0, ds.num_frames, self.config["train"]["kf_every"])
+        if (ds.num_frames - 1) not in kf:
+            kf = np.concatenate([kf, [ds.num_frames - 1]])
+        gsz = guidance.spec.image_size
+        imgs = []
+        for i in kf:
+            m = (ds.masks[i] > 0.5).astype(np.float32)
+            masked = ds.images[i] * m[..., None] + (1.0 - m[..., None])
+            imgs.append(cv2.resize(masked, (gsz, gsz),
+                                   interpolation=cv2.INTER_AREA
+                                   ).astype(np.float32))
+        imgs = torch.as_tensor(np.stack(imgs).transpose(0, 3, 1, 2).copy(),
+                               device=self.device)
+        c_crossattn = torch.cat([z123.clip_image_embed(guidance, imgs[k:k + 1])
+                                 for k in range(len(kf))], 0)
+        c_concat = torch.cat([z123.vae_encode_mode(guidance, imgs[k:k + 1])
+                              for k in range(len(kf))], 0)
+        nearest = np.argmin(np.abs(kf[None, :]
+                                   - np.arange(ds.num_frames)[:, None]), 1)
+
+        def dev(a, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(a), dtype=dtype,
+                                   device=self.device)
+        return {
+            "kf": dev(kf, torch.long),
+            "nearest_kf": dev(nearest, torch.long),   # frame -> kf slot
+            "c_crossattn": c_crossattn,               # (K, 1, context)
+            "c_concat": c_concat,                     # (K, 4, h, w)
+            "ref_polars": dev(np.asarray(ds.theta, np.float32)[kf]),
+            "ref_azimuths": dev(np.asarray(ds.phi, np.float32)[kf]),
+            "ref_radii": dev(np.asarray(ds.radius, np.float32)[kf]),
+        }
+
+    def _novel_view_scale(self) -> float:
+        d = self.config["data"]
+        return (d["novel_view_scale_final"] if self.epoch > 800
+                else d["novel_view_scale"])
+
+    def virtual_sampler(self, scale: float) -> data_lib.VirtualViewSampler:
+        if scale not in self._samplers:
+            self._samplers[scale] = data_lib.VirtualViewSampler(
+                self.dataset, self.config, scale, self.device)
+        return self._samplers[scale]
+
+    def _virtual_loss(self, occ, draws, epoch, max_level, sampler):
+        """Virtual-view SDS loss of a random view of `sampler` (reference
+        train_step(real_view=False), morpheus.py:1147-1236)."""
+        if self.curr.progressive_view:
+            th, ph = self.curr.view_ranges(epoch)
+            batch = sampler.sample(draws=draws, theta_range=th, phi_range=ph)
+        else:
+            batch = sampler.sample(draws=draws)
+        return self.virtual_loss_from_batch(occ, draws, epoch, max_level,
+                                            batch, sampler.H, sampler.W)
+
+    def virtual_loss_from_batch(self, occ, draws, epoch, max_level, batch,
+                                H, W):
+        """SDS loss of one explicit virtual view (H*W rays and the view's
+        offsets from its frame), (loss, out) (get_virtual_view_loss,
+        morpheus.py:1044-1088). Draws: 'shade', 'ambient', 'bg_virtual',
+        'bg_select' (with a background net), the render's, 'kf_pick', and
+        sds_loss's."""
+        from ..guidance import zero123 as z123
+        from ..guidance.resize import resize
+        cfg = self.config
+        tr, gd = cfg["train"], cfg["guidance"]
+        g, emb = self.guidance, self.embeddings
+        N = H * W
+
+        # shading (morpheus.py:864-887): albedo in the first epochs, then
+        # textureless with probability textureless_ratio, else lambertian
+        albedo_phase = (np.float32(epoch) / np.float32(self.curr.n_epochs)
+                        <= np.float32(self.curr.albedo_iter_ratio))
+        u = draws.uniform("shade", ())
+        a = draws.uniform("ambient", ())
+        if albedo_phase:
+            shading_id, ambient = SHADING_ALBEDO, 1.0
+        else:
+            shading_id = torch.where(
+                u >= 1.0 - self.curr.textureless_ratio,
+                SHADING_TEXTURELESS, SHADING_LAMBERTIAN)
+            min_amb = self.curr.min_ambient_ratio
+            ambient = min_amb + (1.0 - min_amb) * a
+
+        # background (morpheus.py:889-903): one random color or the net's
+        rand_bg = draws.uniform("bg_virtual", (3,)).expand(N, 3)
+        if cfg["model"]["bg_radius"] > 0:
+            net_bg = self.step_field.background(batch["rays_d"],
+                                                batch["rays_t"], max_level)
+            use_net = draws.uniform("bg_select", ()) > 0.5
+            bg_color = torch.where(use_net, net_bg, rand_bg)
+        else:
+            bg_color = rand_bg
+
+        def render(draws_, bg_color_, ambient_):
+            return renderer.render_rays(
+                self.step_field, occ, draws_, batch["rays_o"],
+                batch["rays_d"], batch["rays_t"], batch["rays_id"],
+                self.rcfg, bg_color=bg_color_, ambient_ratio=ambient_,
+                shading_id=shading_id, real_view=False, optimize_pose=False,
+                max_level=max_level, train=True)
+
+        remat = cfg["tpu"].get("remat_virtual", True)
+        if remat:
+            # recompute the render in the backward instead of keeping its
+            # activations (exact: the recomputation replays the draws)
+            rec = RecordedDraws(draws)
+            out = torch.utils.checkpoint.checkpoint(
+                lambda b, am: render(rec.start(), b, am), bg_color,
+                ambient, use_reentrant=False)
+        else:
+            out = render(draws, bg_color, ambient)
+
+        pred = torch.clamp(out["image"].reshape(1, H, W, 3), 0.0, 1.0)
+        gsz = g.spec.image_size
+        pred256 = resize(pred.permute(0, 3, 1, 2), (gsz, gsz), "bilinear")
+
+        # keyframe: the frame's nearest, or the first ('cur_or_one',
+        # morpheus.py:1044-1079)
+        f = batch["frame_idx"]
+        f = (f.reshape(1).long() if isinstance(f, torch.Tensor)
+             else torch.tensor([int(f)], device=self.device))
+        slot_near = emb["nearest_kf"].index_select(0, f)
+        use_cur = draws.uniform("kf_pick", ()) > 0.5
+        slot = torch.where(use_cur, slot_near, 0)
+
+        def ref(name, s):
+            return emb[name].index_select(0, s)[0]
+
+        def dev(x):
+            return torch.as_tensor(x, device=self.device).reshape(-1)[0]
+
+        # the view's offsets from the chosen keyframe's view
+        polar_t = dev(batch["polar"]) + ref("ref_polars", slot_near)
+        azim_t = dev(batch["azimuth"]) + ref("ref_azimuths", slot_near)
+        rad_t = dev(batch["radius"]) + ref("ref_radii", slot_near)
+        polar_k = polar_t - ref("ref_polars", slot)
+        azim_k = azim_t - ref("ref_azimuths", slot)
+        azim_k = torch.where(azim_k > 180.0, azim_k - 360.0, azim_k)
+        rad_k = rad_t - ref("ref_radii", slot)
+        gs = z123.angle_grad_scale(
+            polar_k, azim_k, rad_k, ref("ref_polars", slot),
+            ref("ref_azimuths", slot), ref("ref_radii", slot),
+            gd["zero123_grad_weight"])
+        min_step, max_step = self.curr.sds_steps(epoch)
+        loss_sds, diag = z123.sds_loss(
+            g, draws, pred256, emb["c_crossattn"].index_select(0, slot),
+            emb["c_concat"].index_select(0, slot), polar_k, azim_k, rad_k,
+            min_step, max_step, guidance_scale=gd["zero123_guidance_scale"],
+            grad_scale=gs, remat=remat)
+        if cfg["exp"]["save_guidance"]:
+            out["sds_diag"] = dict(diag, pred_rgb=pred256.detach())
+
+        ori_w, rgb_w, beta_w = self.curr.loss_weights(epoch)
+        loss = loss_sds + self._reg_loss(out, ori_w, beta_w)
+        if tr["normal_smooth_2d"] > 0 and "normal_image" in out:
+            ni = out["normal_image"].reshape(H, W, 3)
+            loss = loss + tr["normal_smooth_2d"] * (
+                ((ni[1:] - ni[:-1]) ** 2).mean()
+                + ((ni[:, 1:] - ni[:, :-1]) ** 2).mean())
+        return loss, out
+
+    def save_guidance_panels(self, diag: dict, step: int) -> str:
+        """Write the render | noised | denoised | |grad| panel of a virtual
+        step to guidance/{step:06d}_zero123_{t}.png (morpheus.py:1221-1225,
+        zero123_utils.py:215-231); returns the path."""
+        import cv2
+
+        from ..guidance import zero123 as z123
+        panel = z123.guidance_panels(self.guidance, diag["pred_rgb"], diag)
+        t_val = int(diag["t"][0])
+        img = panel[0].permute(1, 2, 0).float().cpu().numpy()
+        path = os.path.join(self.workspace, "guidance",
+                            f"{step:06d}_zero123_{t_val}.png")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        cv2.imwrite(path, cv2.cvtColor(
+            (np.clip(img, 0, 1) * 255).astype(np.uint8), cv2.COLOR_RGB2BGR))
+        return path
+
     # ---- steps ----
 
     def real_step(self, epoch) -> torch.Tensor:
@@ -269,24 +530,85 @@ class Trainer:
         t_occ = draws.uniform("t_occ", ())
         self.occ = self._maybe_update_occ(self.occ, step, t_occ, draws)
         loss, _ = self._real_loss(self.occ, draws, epoch, max_level)
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(self.params, grads)]
+        grads = self._grads(loss)
+        if self._pending_live:
+            # fold in the carried virtual-step gradients (trainer.py:416-418
+            # of the JAX package); a non-finite sum skips the update and the
+            # carried gradients are dropped all the same
+            torch._foreach_add_(grads, self.pending)
+            torch._foreach_zero_(self.pending)
+            self._pending_live = False
         self.optim.update(grads, lr)
         self.global_step += 1
         return loss.detach()
 
+    def _grads(self, loss):
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(self.params, grads)]
+
+    def virtual_step(self, epoch, sampler) -> tuple[torch.Tensor, dict]:
+        """One SDS virtual step on a view of `sampler`; returns (loss on the
+        device, the guidance panels' inputs or {}). The gradients are
+        divided by virtual_freq and zeroed if any is non-finite; while the
+        deform freeze is on they step Adam at once with FREEZE_GROUPS at
+        rate 0 (and the carried gradients are cleared), after it they are
+        added to the carried gradients (trainer.py:625-672 of the JAX
+        package)."""
+        draws = self.draws
+        step = self.global_step
+        lr = self.curr.learning_rate(epoch)
+        max_level = self.curr.max_level(epoch)
+        t_occ = draws.uniform("t_occ", ())
+        self.occ = self._maybe_update_occ(self.occ, step, t_occ, draws)
+        loss, out = self._virtual_loss(self.occ, draws, epoch, max_level,
+                                       sampler)
+        grads = self._grads(loss)
+        torch._foreach_div_(grads, float(self.config["train"]["virtual_freq"]))
+        found = torch.zeros((), device=self.device)
+        torch._amp_foreach_non_finite_check_and_unscale_(
+            grads, found, torch.ones_like(found))
+        ok = found == 0.0
+        # the GradScaler-parity skip: a non-finite SDS gradient neither
+        # steps Adam nor enters the carry
+        grads = [torch.where(ok, g, 0.0) for g in grads]
+        if self.curr.freeze_deform(epoch):
+            self.optim.update(grads, lr, frozen=optim.FREEZE_GROUPS, ok=ok)
+            torch._foreach_zero_(self.pending)
+            self._pending_live = False
+        else:
+            torch._foreach_add_(self.pending, grads)
+            self._pending_live = True
+        self.global_step += 1
+        return loss.detach(), out.get("sds_diag", {})
+
     def train_one_epoch(self, n_iters: int | None = None) -> float:
-        """n_iters x (virtual_freq + real_freq) real steps, then the EMA.
-        Without guidance the reference runs its virtual slots as real steps,
-        and so does this."""
-        tr = self.config["train"]
+        """n_iters x (virtual_freq virtual slots + real_freq real steps),
+        then the EMA (trainer.py:850-907 of the JAX package). A virtual slot
+        runs an SDS step when there is guidance and the host step has
+        passed warm_up_steps, a real step otherwise, as the reference's
+        does."""
+        tr, exp = self.config["train"], self.config["exp"]
         n_iters = n_iters or tr.get("n_iters", 10)
         self._set_levels(self._active_levels())
+        sampler = (self.virtual_sampler(self._novel_view_scale())
+                   if self.guidance is not None else None)
         loss = torch.tensor(float("nan"))
         for _ in range(n_iters):
-            for _ in range(tr["virtual_freq"] + tr["real_freq"]):
+            for _ in range(tr["virtual_freq"]):
+                if sampler is not None \
+                        and self.host_step >= tr["warm_up_steps"]:
+                    loss, diag = self.virtual_step(self.epoch, sampler)
+                    if (exp["save_guidance"] and diag and self.workspace
+                            and self.host_step % exp["save_guide_intervel"]
+                            == 0):
+                        self.save_guidance_panels(diag, self.host_step)
+                else:
+                    loss = self.real_step(self.epoch)
+                self.host_step += 1
+            for _ in range(tr["real_freq"]):
                 loss = self.real_step(self.epoch)
+                self.host_step += 1
         optim.ema_update(self.ema, self.params, tr["ema_decay"])
         return float(loss)
 
@@ -305,8 +627,8 @@ class Trainer:
     def state_dict(self) -> dict:
         """Everything a resumed run needs to continue as if never stopped:
         parameters, Adam's step and moments, the EMA, the occupancy grid,
-        the step and epoch counters and the state of the random draws (the
-        port has no virtual steps, so its host step is the global step)."""
+        the carried virtual-step gradients, the step, host-step and epoch
+        counters and the state of the random draws."""
         def arrays(ts):
             return {n: t.detach().cpu().numpy()
                     for n, t in zip(self.optim.names, ts)}
@@ -323,7 +645,8 @@ class Trainer:
             "global_step": int(self.global_step),
             "epoch": int(self.epoch),
             "draws": draws,
-            "host_step": int(self.global_step),
+            "host_step": int(self.host_step),
+            "pending_grads": arrays(self.pending),
         }
 
     def load_state_dict(self, state: dict) -> None:
@@ -342,6 +665,13 @@ class Trainer:
         load(self.optim.mu, state["optim"]["mu"])
         load(self.optim.nu, state["optim"]["nu"])
         load(self.ema, state["ema"])
+        pending = state.get("pending_grads")
+        if pending is None:
+            torch._foreach_zero_(self.pending)
+        else:
+            load(self.pending, pending)
+        self._pending_live = pending is not None and any(
+            np.any(np.asarray(pending[n])) for n in self.optim.names)
         self.optim.step.fill_(float(state["optim"]["step"]))
         self.occ = occupancy.OccupancyState(
             occs=torch.as_tensor(np.asarray(state["occ"]["occs"]),
@@ -349,6 +679,7 @@ class Trainer:
             binaries=torch.as_tensor(np.asarray(state["occ"]["binaries"]),
                                      device=self.device))
         self.global_step = int(state["global_step"])
+        self.host_step = int(state.get("host_step", self.global_step))
         self.epoch = int(state["epoch"])
         if state.get("draws") is not None and isinstance(self.draws, Draws):
             self.draws.generator.set_state(

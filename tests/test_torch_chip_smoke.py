@@ -117,3 +117,115 @@ def test_capture_mesh_gather_records_and_restores(chip_smoke, tmp_path):
     # the CPU runs the plain twin: no launch is counted
     assert launches == {"level_histogram": 0, "level_gather": 0,
                         "segment_sum_sorted": 0}
+
+
+def _tiny_sds_trainer(chip_smoke, mode):
+    """chip_smoke's tiny config with SDS on and a tiny random guidance,
+    remat_virtual off as configs/synthetic_full.yaml has it."""
+    from morpheus_tpu_torch.guidance.zero123 import (Zero123Guidance,
+                                                     Zero123Spec)
+    import torch_parity as tp
+    cfg = chip_smoke.tiny_config(mode)
+    cfg["train"].update(virtual_freq=1, warm_up_steps=0, freeze_epoch=4)
+    cfg["data"]["novel_view_scale"] = 0.375
+    cfg["tpu"]["remat_virtual"] = False
+    g = Zero123Guidance.init_random(Zero123Spec(**tp.SPEC_KW), "cpu")
+    tr = Trainer(cfg, load_synthetic(cfg), device="cpu", guidance=g)
+    tr.epoch = 6
+    tr.global_step = 5
+    return tr
+
+
+@pytest.mark.parametrize("mode", list(STEP_CALLS))
+def test_capture_sds_streams_under_each_mode(chip_smoke, mode):
+    """One SDS step's kernel calls, captured after the route is switched in
+    place (set_vjp_mode): the mode's kernels only, the originals and their
+    counters restored; the step carried its gradients (epoch 6 is past the
+    freeze)."""
+    tr = _tiny_sds_trainer(chip_smoke, "hist_rows")
+    chip_smoke.set_vjp_mode(tr, mode)
+    assert tr.step_field.spec.grid.vjp_mode == mode
+    real = {"level_histogram": hist.level_histogram,
+            "level_gather": gather.level_gather,
+            "segment_sum_sorted": segsum.segment_sum_sorted}
+    counts = {k: fn.launches for k, fn in real.items()}
+    calls = chip_smoke.capture_sds_streams(tr, 6)
+    for name, fn in real.items():
+        assert getattr(hashgrid, name) is fn
+        assert fn.launches == counts[name]
+    got = {c["kernel"] for c in calls}
+    assert got == set(STEP_CALLS[mode]) and all(c["phase"] == "sds"
+                                                for c in calls)
+    assert tr._pending_live
+    for c in calls:
+        out = real[c["kernel"]](*c["args"], **c["kw"])
+        assert bool(torch.isfinite(out).all())
+
+
+def test_instrument_sds_marks_each_part_and_undoes(chip_smoke):
+    """The SDS step's marks come in the order render, VAE encoder, UNet,
+    backward (VAE, then render), Adam (freeze on), and every wrapper is
+    removed afterwards."""
+    from morpheus_tpu_torch import renderer
+    from morpheus_tpu_torch.guidance import zero123 as z123
+    tr = _tiny_sds_trainer(chip_smoke, "hist_rows")
+    tr.epoch = 3
+    before = (renderer.render_rays, z123.vae_encode_sample, z123.apply_unet,
+              z123.sds_loss)
+    names = []
+    undo = chip_smoke.instrument_sds(tr, names.append)
+    try:
+        tr.virtual_step(3, tr.virtual_sampler(0.375))
+    finally:
+        undo()
+    assert names == ["render", "render_end", "vae_fwd", "vae_fwd_end",
+                     "unet", "unet_end", "vae_bwd", "render_bwd",
+                     "grads_end", "adam", "adam_end"]
+    assert (renderer.render_rays, z123.vae_encode_sample, z123.apply_unet,
+            z123.sds_loss) == before
+    assert "_grads" not in vars(tr) and "update" not in vars(tr.optim)
+
+
+def test_sds_cli_config_cuts_only_depth(chip_smoke):
+    """The SDS CLI phase cuts configs/synthetic_full.yaml in depth only:
+    frames, epochs, iterations, warm-up and the diagnostics' cadence; its
+    guidance, rays, grid, budgets and scales stay."""
+    import yaml
+    with open(os.path.join(os.path.dirname(_PATH), "configs",
+                           "synthetic_full.yaml")) as f:
+        full = yaml.safe_load(f)
+    cuts = chip_smoke.SDS_CLI_CUTS
+    assert set(cuts["data"]) == {"synthetic_frames"}
+    assert set(cuts["train"]) == {"n_epochs", "n_iters", "warm_up_steps"}
+    assert set(cuts["exp"]) <= {"test_interval", "mesh_interval",
+                                "mesh_all_interval", "mesh_all_eval_interval",
+                                "ckpt_interval", "save_guidance",
+                                "save_guide_intervel"}
+    assert full["guidance"]["zero123_ckpt"] == "<random>"
+    assert full["guidance"]["compute_dtype"] == "bfloat16"
+
+
+def test_split_busy_sums_kernels_between_markers(chip_smoke):
+    """split_busy: each window between two marker kernels (short spins)
+    goes to the part its opening mark names (render's forward and backward
+    together, the VAE encoder's too), as the union of the device intervals
+    inside it, clipped to the window; the long bracket spins are passed
+    over; with a marker missing from the trace the split is None."""
+    m = chip_smoke._Marks.__new__(chip_smoke._Marks)
+    m.names = ["step", "render", "render_end", "vae_fwd", "vae_fwd_end",
+               "unet", "unet_end", "vae_bwd", "render_bwd", "grads_end",
+               "step_end"]
+    spins = [("spin_kernel(long)", 100 * i, 100 * i + 1)
+             for i in range(len(m.names))]
+    # one kernel of 10 us in each window, two overlapping ones in the
+    # render's forward window
+    work = [("k", 100 * i + 10, 100 * i + 20)
+            for i in range(len(m.names) - 1)]
+    work.append(("k2", 115, 130))
+    bracket = [("spin_kernel(long)", -100 + 30 * i, -100 + 30 * i + 25)
+               for i in range(3)] + [("spin_kernel(long)", 2000, 2025)]
+    (part,) = chip_smoke.split_busy(
+        sorted(bracket + spins + work, key=lambda k: k[1]), [m])
+    assert part == {"render": 0.020 + 0.010, "vae_encoder": 0.020,
+                    "unet": 0.010, "adam": 0.0, "other": 0.050}
+    assert chip_smoke.split_busy(bracket + spins[1:] + work, [m]) is None

@@ -88,15 +88,16 @@ def test_ckpt_holds_only_plain_types(tmp_path):
     with open(path, "rb") as f:
         state = Plain(f).load()
     assert set(state) == {"params", "optim", "ema", "occ", "global_step",
-                          "epoch", "draws", "host_step"}
+                          "epoch", "draws", "host_step", "pending_grads"}
 
 
 @pytest.fixture(scope="module")
 def jax_ckpt(tmp_path_factory):
     """A file written by the JAX Trainer.save_ckpt at tiny size, with
-    nonzero moments and an EMA apart from the parameters. The trainer is a
-    stand-in holding only what save_ckpt reads (state, epoch, optim_name,
-    key), so no JAX step is compiled."""
+    nonzero moments, an EMA apart from the parameters, carried virtual-step
+    gradients (pending_grads) and a host step apart from the global step.
+    The trainer is a stand-in holding only what save_ckpt reads (state,
+    epoch, optim_name, key, _host_step), so no JAX step is compiled."""
     spec = jfield.FieldSpec(grid=jhash.HashGridSpec(
         num_levels=4, log2_hashmap_size=10, base_resolution=8,
         desired_resolution=32), num_frames=4, bound=1.01, bg_radius=0.0)
@@ -112,9 +113,9 @@ def jax_ckpt(tmp_path_factory):
             params=p, opt_state=joptim.AdamState(
                 step=jnp.asarray(7, jnp.int32), mu=rand(p), nu=rand(p)),
             ema=rand(p), occ=jocc.init_occupancy(16),
-            global_step=jnp.asarray(21, jnp.int32)),
+            global_step=jnp.asarray(21, jnp.int32), pending_grads=rand(p)),
         epoch=5, optim_name="adam", key=jax.random.PRNGKey(0), spec=spec,
-        _host_step=21)
+        _host_step=23)
     path = str(tmp_path_factory.mktemp("jax") / "model_ep_0005.pkl")
     jtrainer.Trainer.save_ckpt(jtr, path)
     return jtr, path
@@ -138,11 +139,11 @@ def test_jax_ckpt_loads_without_jax(jax_ckpt, tmp_path):
     got = _load_without_jax(path, str(tmp_path / "out.pkl"))
     st = jtr.state
     want = {
-        "params": st.params, "ema": st.ema,
+        "params": st.params, "ema": st.ema, "pending_grads": st.pending_grads,
         "mu": st.opt_state.mu, "nu": st.opt_state.nu}
     for key, tree in want.items():
         ref = convert.params_from_jax(jax.tree.map(np.asarray, tree))
-        have = got[key] if key in ("params", "ema") else got["optim"][key]
+        have = got[key] if key not in ("mu", "nu") else got["optim"][key]
         assert set(have) == set(ref)
         for name, a in ref.items():
             assert np.array_equal(have[name], a.numpy()), (key, name)
@@ -150,15 +151,19 @@ def test_jax_ckpt_loads_without_jax(jax_ckpt, tmp_path):
     assert np.array_equal(got["occ"]["occs"], np.asarray(st.occ.occs))
     assert np.array_equal(got["occ"]["binaries"],
                           np.asarray(st.occ.binaries))
-    assert (got["global_step"], got["epoch"]) == (21, 5)
+    assert (got["global_step"], got["epoch"], got["host_step"]) == (21, 5,
+                                                                      23)
 
-    # and it loads into the port's trainer
+    # and it loads into the port's trainer, the carried gradients with it
     _, cfg = tp.config_pair("float32")
     tr = Trainer(cfg, load_synthetic(cfg), device="cpu")
     tr.load_state_dict(got)
     for name, p in tr.field.named_parameters():
         assert np.array_equal(p.detach().numpy(), got["params"][name])
-    assert tr.epoch == 5 and tr.global_step == 21
+    for name, g in zip(tr.optim.names, tr.pending):
+        assert np.array_equal(g.numpy(), got["pending_grads"][name])
+    assert tr._pending_live
+    assert (tr.epoch, tr.global_step, tr.host_step) == (5, 21, 23)
 
 
 def test_jax_adan_ckpt_and_foreign_classes_are_refused(jax_ckpt, tmp_path):

@@ -6,6 +6,7 @@ are cut to 16 (canonical and per-frame) and 20 (per-frame at the final
 epoch). Also: the eval worker and its metric subprocess run with jax and the
 JAX package unimportable, and the final epoch's lost metric row is
 backfilled though the epoch is no multiple of the eval interval."""
+import dataclasses
 import glob
 import os
 import re
@@ -125,12 +126,50 @@ def test_cli_refuses_missing_cuda(tmp_path):
 
 @pytest.mark.parametrize("ckpt", ["<random>", "<random-tiny>", "exists"])
 def test_cli_refuses_zero123_guidance(tmp_path, ckpt):
+    """Zero123 guidance is ported: "<random>" builds the full-size random
+    Zero123 (on the meta device here, so no memory is spent) and
+    "<random-tiny>" the small one, each under guidance.compute_dtype; a
+    zero123_ckpt path that exists but does not hold a checkpoint fails with
+    the loader's error."""
+    from morpheus_tpu_torch.config import merge_defaults
+    from morpheus_tpu_torch.guidance.zero123 import TINY_SPEC, Zero123Spec
+    cfg = merge_defaults({"guidance": {"zero123_ckpt": ckpt,
+                                       "compute_dtype": "bfloat16"}})
+    logged = []
     if ckpt == "exists":
-        ckpt = str(tmp_path / "zero123.ckpt")
-        open(ckpt, "w").close()
-    with pytest.raises(NotImplementedError, match="A9"):
-        cli.main(["--config", _config(tmp_path), "--device", "cpu",
-                  "guidance", "--zero123_ckpt", ckpt])
+        path = tmp_path / "zero123.ckpt"
+        path.write_bytes(b"")
+        cfg["guidance"]["zero123_ckpt"] = str(path)
+        with pytest.raises(ValueError, match="not a readable Zero123"):
+            cli.build_guidance(cfg, torch.device("cpu"), logged.append)
+        return
+    device = torch.device("meta" if ckpt == "<random>" else "cpu")
+    g = cli.build_guidance(cfg, device, logged.append)
+    base = Zero123Spec() if ckpt == "<random>" else TINY_SPEC
+    assert g.spec == dataclasses.replace(base, compute_dtype="bfloat16")
+    assert {p.dtype for p in g.unet.parameters()} == {torch.bfloat16}
+    assert {p.dtype for p in g.vae.parameters()} == {torch.float32}
+    assert {p.device.type for p in g.parameters()} == {device.type}
+    assert logged == [f"Initialized RANDOM-weight Zero123 guidance ({ckpt})"]
+
+
+def test_dead_eval_worker_leaves_no_inflight_file(tmp_path):
+    """An eval worker that fails at start-up (its config.yaml does not
+    parse) removes its inflight files, and the trainer's wait sees it dead
+    at once although its Popen was dropped (a zombie child is not alive)."""
+    import time
+    ws = str(tmp_path)
+    (tmp_path / "config.yaml").write_text("data: [unclosed\n")
+    assert backfill.run_eval_detached(ws, [2, 4]) is not None
+    t0 = time.perf_counter()
+    assert backfill.wait_for_evals(ws, timeout_s=60, poll_s=0.2)
+    assert time.perf_counter() - t0 < 30
+    deadline = time.time() + 30
+    while glob.glob(os.path.join(ws, ".eval_inflight_*")) \
+            and time.time() < deadline:
+        time.sleep(0.2)
+    assert not glob.glob(os.path.join(ws, ".eval_inflight_*"))
+    assert "Error" in open(os.path.join(ws, "eval_worker.log")).read()
 
 
 def test_missing_zero123_ckpt_warns_and_clip_ckpt_raises(tmp_path):
@@ -162,11 +201,35 @@ def test_final_epoch_row_is_a_backfill_candidate(tmp_path):
     assert jbackfill.missing_eval_epochs(ws, FRAMES, 2, 3) == []
 
 
+# one tiny SDS virtual step of the port's trainer with its guidance
+SDS_STEP = (
+    "import torch; "
+    "from morpheus_tpu_torch.config import merge_defaults; "
+    "from morpheus_tpu_torch.data.dataset import load_synthetic; "
+    "from morpheus_tpu_torch.guidance import zero123 as z; "
+    "from morpheus_tpu_torch.train.trainer import Trainer; "
+    "cfg = merge_defaults({'data': {'data_dir': '<synthetic>', "
+    "'synthetic_frames': 2, 'synthetic_res': 16}, "
+    "'model': {'grid_num_levels': 4, 'grid_log2_hashmap_size': 10}, "
+    "'tpu': {'max_samples_per_ray': 8, 'march_steps': 32, "
+    "'occ_resolution': 16, 'sample_budget': 4, 'band_budget': 2, "
+    "'smooth_budget': 2}}); "
+    "spec = z.Zero123Spec(image_size=16, unet_channels=32, "
+    "unet_mult=(1, 2), unet_heads=2, context_dim=16, clip_width=32, "
+    "clip_layers=1, clip_heads=2, clip_patch=14, vae_ch=32, "
+    "vae_mult=(1, 2), vae_res_blocks=1); "
+    "tr = Trainer(cfg, load_synthetic(cfg), device='cpu', "
+    "guidance=z.Zero123Guidance.init_random(spec, 'cpu')); "
+    "loss, diag = tr.virtual_step(5, tr.virtual_sampler(0.5)); "
+    "assert torch.isfinite(loss) and tr.global_step == 1, loss")
+
+
 def test_backfill_worker_runs_without_jax(drive, tmp_path):
     """The final epoch's lost metric row is backfilled by the port's worker,
     with jax and the JAX package unimportable in the worker and in its
     metric subprocess (a package of each name on the path ahead of the real
-    ones records any import and raises)."""
+    ones records any import and raises); in the same process the port's
+    guidance imports and one tiny SDS virtual step runs."""
     ws_src, _ = drive
     root = tmp_path / "root"
     shutil.copytree(os.path.join(ROOT, "morpheus_tpu_torch"),
@@ -190,7 +253,7 @@ def test_backfill_worker_runs_without_jax(drive, tmp_path):
             "sys.modules['morpheus_tpu'] = None; "
             "from morpheus_tpu_torch.eval import backfill as b; "
             f"p = b.backfill_missing({ws!r}, {FRAMES}, 3, 2, max_epochs=2); "
-            "assert p is not None and p.wait(600) == 0")
+            "assert p is not None and p.wait(600) == 0; " + SDS_STEP)
     env = dict(os.environ, PYTHONPATH=f"{root}{os.pathsep}{block}")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(root),
                    env=env)

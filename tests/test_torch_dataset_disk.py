@@ -115,5 +115,19 @@ def test_fixed_angle_virtual_view_matches_jax(tmp_path, scale):
             g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
             np.testing.assert_allclose(g, np.asarray(want[key]), rtol=0,
                                        atol=ATOL, err_msg=key)
-    with pytest.raises(NotImplementedError, match="A10"):
+    # the random frame and camera of the SDS step: the JAX key tree
+    # replayed by name (tests/torch_parity.py camera_draws)
+    import torch_parity as tp
+    key = jax.random.PRNGKey(7)
+    want = js.sample(key)
+    got = ts.sample(draws=tp.ReplayDraws(tp.camera_draws(key,
+                                                         tds.num_frames)))
+    assert int(got["frame_idx"]) == int(want["frame_idx"])
+    for k in ("rays_o", "rays_d", "rays_t", "rays_id", "radius"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+    for k in ("polar", "azimuth"):      # degrees
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=1e-4, err_msg=k)
+    with pytest.raises(ValueError, match="needs draws"):
         ts.sample()

@@ -30,11 +30,13 @@ def test_real_loss_and_grads_match_jax(payload, monkeypatch):
 
 
 def test_trainer_imports_without_jax():
-    """The port's trainer, CLI, mesh export, videos and eval worker import
-    with jax and the JAX package unavailable."""
+    """The port's trainer, guidance, CLI, mesh export, videos and eval
+    worker import with jax and the JAX package unavailable."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['morpheus_tpu'] = None; "
             "import morpheus_tpu_torch.train.trainer, morpheus_tpu_torch.convert, "
+            "morpheus_tpu_torch.guidance.zero123, "
+            "morpheus_tpu_torch.guidance.checkpoint, "
             "morpheus_tpu_torch.ops.segsum, morpheus_tpu_torch.ops.gather, "
             "morpheus_tpu_torch.__main__, morpheus_tpu_torch.mesh_export, "
             "morpheus_tpu_torch.vis.video, morpheus_tpu_torch.vis.mesh_video, "
@@ -78,6 +80,14 @@ def test_unported_modes_raise(section, key, value):
 
 
 def test_guidance_is_not_ported():
+    """Guidance is ported (the SDS virtual step): the trainer takes a
+    Zero123Guidance, computes the keyframe embeddings and moves the CLIP
+    tower to the host; anything else is refused."""
+    from morpheus_tpu_torch.guidance.zero123 import Zero123Guidance, Zero123Spec
     _, tcfg = tp.config_pair("float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Zero123Guidance"):
         Trainer(tcfg, load_synthetic(tcfg), device="cpu", guidance=object())
+    g = Zero123Guidance.init_random(Zero123Spec(**tp.SPEC_KW), "cpu")
+    tr = Trainer(tcfg, load_synthetic(tcfg), device="cpu", guidance=g)
+    assert tr.embeddings["c_concat"].shape == (3, 4, 8, 8)
+    assert tr.guidance.clip.proj.device.type == "cpu"

@@ -1,7 +1,8 @@
 """Shared pieces of the trainer parity tests (tests/test_torch_trainer.py,
-tests/test_torch_trainer_modes.py, tests/test_torch_train_steps.py): a tiny
-synthetic config, a JAX/port trainer pair with the same parameters, the
-replay of the JAX step's key tree into the port's named draw sites, and the
+tests/test_torch_trainer_modes.py, tests/test_torch_train_steps.py,
+tests/test_torch_sds*.py): a tiny synthetic config, a JAX/port trainer pair
+with the same parameters (and the same random Zero123 guidance), the replay
+of the JAX steps' key trees into the port's named draw sites, and the
 real-loss parity check."""
 import numpy as np
 import torch
@@ -11,10 +12,12 @@ import jax.numpy as jnp
 from morpheus_tpu.config import merge_defaults as jax_merge_defaults
 from morpheus_tpu.data import dataset as jax_dataset
 from morpheus_tpu.data.synthetic import make_synthetic_scene as jax_scene
+from morpheus_tpu.guidance import zero123 as jz
 from morpheus_tpu.train import trainer as jax_trainer
 from morpheus_tpu_torch import convert
 from morpheus_tpu_torch.config import merge_defaults
 from morpheus_tpu_torch.data.dataset import load_synthetic
+from morpheus_tpu_torch.guidance import zero123 as tz
 from morpheus_tpu_torch.ops import hashgrid, occupancy
 from morpheus_tpu_torch.train.trainer import Trainer
 
@@ -108,15 +111,11 @@ def step_draws(key, cfg, num_frames, n_pix, step):
     return out
 
 
-def make_pair(payload, vjp_mode="hist_rows"):
-    jcfg, tcfg = config_pair(payload, vjp_mode)
-    scene = jax_scene(num_frames=4, H=32, W=32)
-    jtr = jax_trainer.Trainer(jcfg, jax_dataset.DeformDataset(jcfg, scene))
-    ttr = Trainer(tcfg, load_synthetic(tcfg), device="cpu")
-    # move off the geometric init, whose sdf reads only xyz through a ReLU
-    # MLP: its normals are piecewise constant, so the perturbed-normal L1
-    # term would compare equal normals and differentiate round-off signs
-    params = dict(jtr.state.params)
+def _perturb(params):
+    """Move off the geometric init, whose sdf reads only xyz through a ReLU
+    MLP: its normals are piecewise constant, so the perturbed-normal L1
+    term would compare equal normals and differentiate round-off signs."""
+    params = dict(params)
     rng = np.random.default_rng(0)
     params["sdf_grid"] = params["sdf_grid"] * 100.0
     params["color_grid"] = params["color_grid"] * 100.0
@@ -124,10 +123,185 @@ def make_pair(payload, vjp_mode="hist_rows"):
     params["sdf_net"] = {"w": [w0 + 0.05 * rng.standard_normal(
         w0.shape).astype(np.float32)] + list(params["sdf_net"]["w"][1:]),
         "b": params["sdf_net"]["b"]}
-    params = jax.tree.map(jnp.asarray, params)
+    return jax.tree.map(jnp.asarray, params)
+
+
+def make_pair(payload, vjp_mode="hist_rows"):
+    jcfg, tcfg = config_pair(payload, vjp_mode)
+    scene = jax_scene(num_frames=4, H=32, W=32)
+    jtr = jax_trainer.Trainer(jcfg, jax_dataset.DeformDataset(jcfg, scene))
+    ttr = Trainer(tcfg, load_synthetic(tcfg), device="cpu")
+    params = _perturb(jtr.state.params)
     jtr.state = jtr.state._replace(params=params)
     ttr.load_params(convert.params_from_jax(jax.tree.map(np.asarray, params)))
     return jcfg, jtr, ttr
+
+
+# ---- Zero123 SDS ---------------------------------------------------------------
+
+# the smallest guidance spec with every layer type (tests/test_smoke_fast.py:
+# 95-98), with two UNet levels so Downsample and Upsample are in it
+SPEC_KW = dict(image_size=16, unet_channels=32, unet_mult=(1, 2),
+               unet_heads=2, context_dim=16, clip_width=32, clip_layers=1,
+               clip_heads=2, clip_patch=14, vae_ch=32, vae_mult=(1, 2),
+               vae_res_blocks=1)
+
+
+def randomize(tree, seed, scale=0.2):
+    """Every leaf replaced by seeded normal values (float32)."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda a: (scale * rng.standard_normal(
+        np.shape(a))).astype(np.float32), tree)
+
+
+def jax_guidance(jspec, seed):
+    """A JAX Zero123Guidance of `jspec` with every leaf random and non-zero
+    (init_random zero-initialises the UNet's output convs, so its epsilon
+    would be 0 and pass any comparison): the parameter shapes come from
+    jax.eval_shape of each module's init (no compilation), the values from
+    numpy."""
+    lat = jspec.image_size // 8
+    cd = jspec.context_dim
+    k = jax.random.PRNGKey(0)
+    shapes = [jax.eval_shape(m.init, k, *args)["params"] for m, args in (
+        (jspec.unet_module(), (jnp.zeros((1, lat, lat, 8)),
+                               jnp.zeros((1,), jnp.int32),
+                               jnp.zeros((1, 1, cd)))),
+        (jspec.vae_module(), (jnp.zeros((1, jspec.image_size,
+                                         jspec.image_size, 3)),)),
+        (jspec.clip_module(), (jnp.zeros((1, 224, 224, 3)),)))]
+    unet_p, vae_p, clip_p = (randomize(t, seed + i)
+                             for i, t in enumerate(shapes))
+    return jz.Zero123Guidance(
+        unet_params=unet_p, vae_params=vae_p, clip_params=clip_p,
+        cc_w=randomize(np.zeros((cd + 4, cd)), seed + 3),
+        cc_b=randomize(np.zeros((cd,)), seed + 4),
+        alphas_cumprod=jnp.asarray(jspec.diffusion.alphas_cumprod,
+                                   jnp.float32))
+
+
+def guidance_pair(seed=0, **kw):
+    """A JAX Zero123Guidance with random non-zero weights and the port's
+    with the same weights (convert.guidance_from_jax)."""
+    spec_kw = dict(SPEC_KW, **kw)
+    jspec = jz.Zero123Spec(**spec_kw)
+    jg = jax_guidance(jspec, seed)
+    tspec = tz.Zero123Spec(**spec_kw)
+    tg = tz.Zero123Guidance(tspec)
+    tg.load_state_dict(convert.guidance_from_jax(
+        jax.tree.map(np.asarray, jg), tspec))
+    tz.cast_for_compute(tg)
+    if tspec.compute_dtype == "bfloat16":
+        jg = jz.cast_for_compute(jg, jspec)
+    return jspec, jg, tspec, tg
+
+
+# a virtual view of 12x12 rays (novel_view_scale 0.375 of the 32x32 scene),
+# resized up to the guidance's 16x16; the background net on; epoch 6 of 8
+# is past the albedo phase, so the shading is drawn
+SDS_TRAIN = {"virtual_freq": 1, "real_freq": 1, "warm_up_steps": 0,
+             "freeze_epoch": 4}
+SDS_VIEW = 12
+
+
+def make_sds_pair(seed=0, payload="float32", **train):
+    """A JAX/port trainer pair with the same field parameters (as
+    make_pair) and the same random Zero123 guidance; each side computes its
+    own keyframe embeddings."""
+    tiny = {k: dict(v) for k, v in TINY.items()}
+    tiny["train"].update(SDS_TRAIN, **train)
+    tiny["model"]["bg_radius"] = 1.4
+    tiny["data"]["novel_view_scale"] = SDS_VIEW / 32
+    tiny["tpu"].update(grad_payload=payload, remat_virtual=False)
+    jcfg, tcfg = jax_merge_defaults(tiny), merge_defaults(tiny)
+    jspec, jg, tspec, tg = guidance_pair(seed)
+    scene = jax_scene(num_frames=4, H=32, W=32)
+    jtr = jax_trainer.Trainer(jcfg, jax_dataset.DeformDataset(jcfg, scene),
+                              guidance=jg, guidance_spec=jspec)
+    ttr = Trainer(tcfg, load_synthetic(tcfg), device="cpu", guidance=tg)
+    params = _perturb(jtr.state.params)
+    jtr.state = jtr.state._replace(params=params)
+    ttr.load_params(convert.params_from_jax(jax.tree.map(np.asarray, params)))
+    return jcfg, jtr, ttr
+
+
+def fixed_occupancy(cfg, seed=11):
+    """The same partly occupied occupancy grid for both sides."""
+    R = cfg["tpu"]["occ_resolution"]
+    occs = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed),
+                                         (R ** 3,))) * 0.02
+    j_occ = jax_trainer.occupancy.OccupancyState(
+        occs=jnp.asarray(occs),
+        binaries=jnp.asarray(occs > 0.01).reshape(R, R, R))
+    t_occ = occupancy.OccupancyState(
+        occs=torch.as_tensor(occs),
+        binaries=torch.as_tensor(occs > 0.01).reshape(R, R, R))
+    return j_occ, t_occ
+
+
+def sds_draws(k_sds, latent, min_step, max_step):
+    """The draws of guidance.zero123.sds_loss under key k_sds
+    (zero123.py:266-271), the latents' noise in NCHW."""
+    k_enc, k_t, k_noise = jax.random.split(k_sds, 3)
+    shape = (1, latent, latent, 4)
+    nchw = lambda a: np.asarray(a).transpose(0, 3, 1, 2)  # noqa: E731
+    return {"sds_posterior": nchw(jax.random.normal(k_enc, shape)),
+            "sds_t": jax.random.randint(k_t, (1,), min_step, max_step + 1),
+            "sds_noise": nchw(jax.random.normal(k_noise, shape))}
+
+
+def camera_draws(k_v, num_frames):
+    """The draws of data.dataset.VirtualViewSampler.sample and
+    cameras.sample_virtual_camera under key k_v (dataset.py:226-238,
+    cameras.py:129-144)."""
+    k_f, k_cam = jax.random.split(k_v)
+    k1, k2, k3 = jax.random.split(k_cam, 3)
+    return {"vframe": jax.random.randint(k_f, (), 0, num_frames),
+            "cam_theta": jax.random.uniform(k1, (1,)),
+            "cam_phi": jax.random.uniform(k2, (1,)),
+            "cam_sphere": jax.random.normal(k3, (1, 3)),
+            "cam_sphere_pick": jax.random.uniform(jax.random.fold_in(k_cam,
+                                                                     7), ())}
+
+
+def view_draws(k_rest, cfg, N, latent, min_step, max_step):
+    """The draws of Trainer.virtual_loss_from_batch under key k_rest
+    (trainer.py:516-601)."""
+    k_shade, k_amb, k_bg, k_bgsel, k_r, k_sds, k_pick = jax.random.split(
+        k_rest, 7)
+    out = {"shade": jax.random.uniform(k_shade),
+           "ambient": jax.random.uniform(k_amb),
+           "bg_virtual": jax.random.uniform(k_bg, (3,)),
+           "bg_select": jax.random.uniform(k_bgsel),
+           "kf_pick": jax.random.uniform(k_pick)}
+    out.update(render_draws(k_r, cfg, N))
+    out.update(sds_draws(k_sds, latent, min_step, max_step))
+    return out
+
+
+def virtual_step_draws(key, cfg, num_frames, latent, steps):
+    """The draws of one JAX virtual step under step key `key`
+    (trainer.py:625-641) at a global step that refreshes no occupancy."""
+    k_occ, k_loss, k_t = jax.random.split(key, 3)
+    k_v, k_rest = jax.random.split(k_loss)
+    out = {"t_occ": jax.random.uniform(k_t)}
+    out.update(camera_draws(k_v, num_frames))
+    out.update(view_draws(k_rest, cfg, SDS_VIEW ** 2, latent, *steps))
+    return out
+
+
+def assert_trees_close(got: dict, want: dict, rtol, atol, what=""):
+    """Port state-dict-named arrays against a JAX parameter tree."""
+    got_tree = convert.params_to_jax({k: torch.as_tensor(v)
+                                      for k, v in got.items()})
+    flat_want = dict(jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(np.asarray, want)))
+    flat_got = jax.tree_util.tree_leaves_with_path(got_tree)
+    assert len(flat_got) == len(flat_want)
+    for path, g in flat_got:
+        np.testing.assert_allclose(
+            g, flat_want[path], rtol=rtol, atol=atol,
+            err_msg=f"{what} {jax.tree_util.keystr(path)}")
 
 
 def _abs_hist_grads(monkeypatch, loss_fn, field):
