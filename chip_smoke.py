@@ -9,6 +9,8 @@
 
     python3 chip_smoke.py --sds-only         # phases 1-2, 8b and 10
 
+    python3 chip_smoke.py --modes-only       # phases 1-2 and 11
+
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every hand-written kernel from the sources in this checkout, one
@@ -68,7 +70,21 @@ Phases, in order; any failure exits non-zero:
   10. the trainer CLI with SDS on configs/synthetic_full.yaml, widths kept,
      depth cut (SDS_CLI_CUTS): one epoch, then a second process resumes;
      finite losses, a guidance panel and checkpoints holding pending_grads
-     and host_step are checked (`sds cli:` line).
+     and host_step are checked (`sds cli:` line);
+  11. the training step's other modes (modes_phase): configs/ab_exact.yaml
+     at full width (the exact surface-band ladder; `exact:` line with
+     exact_step_ms, a trace, kernel lines step_exact_<mode>_<i> under each
+     route); configs/synthetic_bench.yaml under the bfloat16 policy
+     (`bf16:` line with bf16_step_ms, a trace, kernel lines
+     step_bf16_<mode>_<i> under each route, the bf16 table through
+     level_gather's bf16 entry); a few steps of each further option
+     (mlp_dtype, Adan, the topology field with every dormant smoothness
+     term, fd normals, encode_topo, smoothstep; `option` lines) and an SDS
+     step under Adan; tiny card-vs-CPU runs of the bf16 policy, the exact
+     ladder, Adan and the topology terms; the CLI on configs/ab_exact.yaml
+     (`exact cli:` line). Each kernel's entry in the kernels line carries
+     its largest exact and bf16 step calls (exact_case, bf16_case) and its
+     launches in phase 11 (modes_launches).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -506,8 +522,9 @@ def gather_cases(device):
 def gather_line(case, local, emb, starts, S, k: int = 50) -> dict:
     """Phase 3: one level_gather call against level_gather_reference, bit
     for bit (both round the same f32 values to nearest even and sum the
-    planes in the same order), then timed. The library call is one
-    index_select of the same rows (it does not round)."""
+    planes in the same order; a bf16 table's values are widened exactly),
+    then timed. The library call is one index_select of the same rows (it
+    does not round), widened to f32 from a bf16 table."""
     import torch
     from morpheus_tpu_torch.ops import gather
     got = gather.level_gather(local, emb, starts, S)
@@ -519,15 +536,17 @@ def gather_line(case, local, emb, starts, S, k: int = 50) -> dict:
     (L, Np), (T, C) = local.shape, emb.shape
     N = L * Np
     rows = global_rows(local, starts)
+    bf16 = emb.dtype == torch.bfloat16
     row = {"case": case, "L": L, "Np": Np, "C": C, "S": S, "rows": T,
-           "max_abs_err": 0.0}
+           "table": str(emb.dtype).split(".")[-1], "max_abs_err": 0.0}
     row.update(timings(
         lambda: gather.level_gather(local, emb, starts, S),
         lambda: gather.level_gather_reference(local, emb, starts, S),
-        lambda: emb.index_select(0, rows), k))
-    # two subtractions and two additions per value under three planes
-    row.update(bound(N * 4 + T * C * 4 + N * C * 4,
-                     N * C * (4 if S == 3 else 0)))
+        lambda: emb.index_select(0, rows).float(), k))
+    # two subtractions and two additions per value under three planes of an
+    # f32 table; a bf16 table's values are only widened
+    row.update(bound(N * 4 + T * C * emb.element_size() + N * C * 4,
+                     N * C * (4 if S == 3 and not bf16 else 0)))
     log("gather", json.dumps(row))
     return row
 
@@ -659,75 +678,23 @@ def check_double_backward(device):
 
 def main_path(device, ds, mode: str, n_timed: int):
     """Phases 5 and 7: the real-view step at configs/synthetic_bench.yaml
-    width under tpu.vjp_mode `mode`: one epoch from step 0, then n_timed
-    steps from global step 256, every kernel's launches counted per step."""
-    import torch
+    width under tpu.vjp_mode `mode` (mode_run without its trace): one epoch
+    from step 0, then n_timed steps from global step 256, every kernel's
+    launches counted per step."""
     from morpheus_tpu_torch.config import load_config
-    from morpheus_tpu_torch.train.trainer import Trainer
-
     cfg = load_config(os.path.join(HERE, "configs", "synthetic_bench.yaml"))
     cfg["tpu"]["vjp_mode"] = mode
-    t0 = time.perf_counter()
-    trainer = Trainer(cfg, ds, device=device)
-    log(f"main path {mode}: {ds.num_frames} frames at {ds.H}x{ds.W}, "
-        f"{sum(p.numel() for p in trainer.params)} parameters, "
-        f"set-up {time.perf_counter() - t0:.1f} s")
-    trainer.epoch = cfg["train"]["n_epochs"]          # all 16 levels active
-    before = [p.detach().clone() for p in trainer.params]
-    torch.cuda.reset_peak_memory_stats(device)
-
-    reset_counts()                                     # counts of this run
-    t0 = time.perf_counter()
-    loss0 = trainer.train_one_epoch(n_iters=1)         # steps 0..9
-    torch.cuda.synchronize(device)
-    epoch_s = time.perf_counter() - t0
-    first = read_counts()
-    n_first = trainer.global_step
-    trainer.global_step = 256                          # past occ warmup
-    step_ms, losses = [], []
-    per_step = {k: [] for k in first}
-    for _ in range(n_timed):
-        n0 = read_counts()
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        loss = trainer.real_step(trainer.epoch)
-        torch.cuda.synchronize(device)
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        for k, v in read_counts().items():
-            per_step[k].append(v - n0[k])
-        losses.append(float(loss))
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated(device)
-
-    if not (all(map(lambda v: v == v and abs(v) != float("inf"), losses))
-            and loss0 == loss0):
-        raise AssertionError(f"{mode}: non-finite loss: {loss0}, {losses}")
-    moved = sum(int(not torch.equal(a, b)) for a, b in zip(before,
-                                                          trainer.params))
-    if moved < len(before) - 1:
-        raise AssertionError(f"{mode}: only {moved}/{len(before)} parameter "
-                             "tensors changed")
-    for k in first:
-        if k in PATH_KERNELS[mode]:
-            if first[k] < n_first or min(per_step[k]) < 1:
-                raise AssertionError(
-                    f"{mode}: {k} did not run on every step: {first[k]} "
-                    f"launches in {n_first} steps, per step {per_step[k]}")
-        elif launches[k]:
-            raise AssertionError(f"{mode}: {k} is not on this path but "
-                                 f"launched {launches[k]} times")
-    med = statistics.median(step_ms)
-    log(f"main path {mode}: epoch of {n_first} steps from step 0 (warmup "
-        f"occupancy update) {epoch_s:.3f} s, loss {loss0}")
-    log(f"main path {mode}: losses from step 256: {losses}")
-    log(f"main path {mode}: step ms {[round(s, 3) for s in step_ms]}")
-    log(f"main path {mode}: launches per step "
-        f"{ {k: per_step[k] for k in PATH_KERNELS[mode]} }")
+    trainer, res = mode_run(device, ds, cfg, f"main path {mode}", n_timed,
+                            trace=False)
+    med = res["step_ms"]
     result = {"vjp_mode": mode, "real_step_ms": med,
-              "rays_per_s": 2048 / (med / 1e3),
-              "steps_timed": len(step_ms), "peak_mem_gb": peak / 1e9,
-              "params_changed": f"{moved}/{len(before)}",
-              "launches": launches, "card": card_line()}
+              "rays_per_s": 2048 / (med / 1e3), "steps_timed": n_timed,
+              "peak_mem_gb": res["peak_mem_gb"],
+              "params_changed": res["params_changed"],
+              # over the epoch and the timed steps
+              "launches": {k: res["epoch_launches"][k] + v
+                           for k, v in res["launches"].items()},
+              "card": res["card"]}
     log("main path:", json.dumps(result))
     return trainer, result
 
@@ -823,11 +790,12 @@ class _HostDraws:
                              generator=self.g).to(self.device)
 
 
-def tiny_config(mode: str) -> dict:
+def tiny_config(mode: str, overrides=None) -> dict:
     """A tiny real-step config under tpu.vjp_mode `mode`: a 4-level hash
-    grid (one packed dense level, three hashed) on a 4-frame 32x32 scene."""
+    grid (one packed dense level, three hashed) on a 4-frame 32x32 scene;
+    overrides {section: {key: value}} on top."""
     from morpheus_tpu_torch.config import merge_defaults
-    return merge_defaults({
+    cfg = merge_defaults({
         "data": {"data_dir": "<synthetic>", "synthetic_frames": 4,
                  "synthetic_res": 32},
         "train": {"n_epochs": 8, "real_ray_num": 64, "warm_up_end": 4},
@@ -839,17 +807,24 @@ def tiny_config(mode: str) -> dict:
                 "smooth_budget": 2, "occ_warmup_steps": 2,
                 "occ_update_every": 2, "grad_payload": "bfloat16",
                 "vjp_mode": mode}})
+    for section, kv in (overrides or {}).items():
+        cfg[section].update(kv)
+    return cfg
 
 
-def small_reference(device, mode: str):
-    """Phase 8: four real steps of tiny_config(mode) on the card and on the
-    CPU from the same parameters and draws: losses at rtol 1e-3, parameters
-    within 2*n*lr (Adam with eps 1e-15 turns round-off gradients into
-    full-lr moves)."""
+def small_reference(device, mode: str, overrides=None, name=None,
+                    loss_rtol: float = 1e-3):
+    """Phase 8 (and 11d): four real steps of tiny_config(mode, overrides)
+    on the card and on the CPU from the same parameters and draws: losses
+    at loss_rtol (1e-3: float32 sums in another order), parameters within
+    2*n*lr (an optimizer normalised by the gradient's own scale - Adam with
+    eps 1e-15, Adan's first step - turns round-off gradients into full-lr
+    moves)."""
     import torch
     from morpheus_tpu_torch.data.dataset import load_synthetic
     from morpheus_tpu_torch.train.trainer import Trainer
-    cfg = tiny_config(mode)
+    cfg = tiny_config(mode, overrides)
+    mode = name or mode
     runs = {}
     for dev in (device, torch.device("cpu")):
         tr = Trainer(cfg, load_synthetic(cfg), device=dev,
@@ -864,14 +839,16 @@ def small_reference(device, mode: str):
     lr = float(tr.curr.learning_rate(5))
     (lg, pg), (lc, pc) = runs[device.type], runs["cpu"]
     for a, b in zip(lg, lc):
-        if not abs(a - b) <= 1e-3 * abs(b):
+        if not abs(a - b) <= loss_rtol * abs(b):
             raise AssertionError(f"{mode}: tiny run losses differ: {lg} vs "
                                  f"{lc}")
     worst = max(float((a - b).abs().max()) for a, b in zip(pg, pc))
     if worst > 2 * 4 * lr:
         raise AssertionError(f"{mode}: tiny run params differ by {worst}")
     log(f"small reference {mode}: card losses {lg}, CPU losses {lc}, max "
-        f"param diff {worst} (limit {2 * 4 * lr})")
+        f"param diff {worst} (limit {2 * 4 * lr}, loss rtol {loss_rtol})")
+    return {"losses_card": lg, "losses_cpu": lc, "max_param_diff": worst,
+            "param_limit": 2 * 4 * lr, "loss_rtol": loss_rtol}
 
 
 # ---- the SDS virtual step (configs/synthetic_full.yaml) ----------------------
@@ -1175,10 +1152,7 @@ def capture_sds_streams(trainer, epoch: int) -> list:
 def set_vjp_mode(trainer, mode: str):
     """Switch a trainer's hash-grid route in place (the parameters are the
     same under every route)."""
-    import dataclasses
-    trainer.spec = dataclasses.replace(trainer.spec, grid=dataclasses.replace(
-        trainer.spec.grid, vjp_mode=mode))
-    trainer._set_levels(trainer._active_levels())
+    trainer.set_spec(grid={"vjp_mode": mode})
 
 
 def sds_phase(device, ds) -> tuple:
@@ -1481,6 +1455,62 @@ def _run_cli(cfg_path: str, extra: list, out_path: str) -> str:
     return text
 
 
+def check_cli_artifacts(ws: str, frames: int, mesh_epochs, final_epochs,
+                        video_epoch: int) -> tuple:
+    """The artifacts of morpheus.py's epoch loop in a CLI workspace: the
+    canonical meshes of mesh_epochs, every frame's mesh, the mesh videos,
+    the checkpoint and a metric_3d.txt row of each final epoch, the test
+    videos of video_epoch; no eval worker still running; every mesh with
+    faces and a median vertex radius under 1; the real-view test video's
+    first frame darker at its centre (the object) than at its corner.
+    Returns ({mesh: median vertex radius}, (centre, corner))."""
+    import glob
+
+    import cv2
+    import numpy as np
+    from morpheus_tpu_torch.ops import meshing
+    want = (["mesh/init.ply"] + [f"mesh/mesh_{e:04d}.ply" for e in mesh_epochs]
+            + [f"mesh_all/mesh_{e:04d}_{i:04d}.ply" for e in final_epochs
+               for i in range(frames)]
+            + [f"results/test{n}_ep{video_epoch:04d}_{k}.mp4"
+               for n in ("", "_180", "_cano", "_360", "_real")
+               for k in ("rgb", "depth")]
+            + [f"videos/video_{v}_{e:04d}.mp4" for v in ("real", "360")
+               for e in final_epochs]
+            + [f"models/model_ep_{e:04d}.pkl" for e in final_epochs]
+            + ["metric_3d.txt"])
+    missing = [p for p in want if not os.path.exists(os.path.join(ws, p))]
+    if missing:
+        raise AssertionError(f"CLI artifacts missing: {missing}")
+    with open(os.path.join(ws, "metric_3d.txt")) as f:
+        rows = [line.split(":")[0] for line in f if line.startswith("Ep_")]
+    if sorted(rows) != [f"Ep_{e}" for e in final_epochs]:
+        raise AssertionError(f"metric_3d.txt rows {rows}")
+    if glob.glob(os.path.join(ws, ".eval_inflight_*")):
+        raise AssertionError("an eval worker is still running")
+    radii = {}
+    for p in want:
+        if p.endswith(".ply"):
+            v, faces, _ = meshing.load_ply(os.path.join(ws, p))
+            radii[p] = float(np.median(np.linalg.norm(v, axis=-1)))
+            if not len(faces) or not radii[p] < 1.0:
+                raise AssertionError(f"{p}: {len(faces)} faces, median "
+                                     f"vertex radius {radii[p]}")
+    video = f"test_real_ep{video_epoch:04d}_rgb.mp4"
+    cap = cv2.VideoCapture(os.path.join(ws, "results", video))
+    ok, frame = cap.read()
+    cap.release()
+    if not ok:
+        raise AssertionError(f"{video} did not decode")
+    h, w = frame.shape[:2]
+    centre = float(frame[h // 2, w // 2].mean())
+    corner = float(frame[2, 2].mean())
+    if not centre < corner:
+        raise AssertionError(f"{video} frame 0: centre {centre} is not "
+                             f"darker than its corner {corner}")
+    return radii, (centre, corner)
+
+
 def cli_phase(workdir: str) -> dict:
     """Phase 9: the trainer CLI (python -m morpheus_tpu_torch) on the card
     at configs/synthetic_bench.yaml width with CLI_CUTS: 2 epochs, then the
@@ -1488,12 +1518,8 @@ def cli_phase(workdir: str) -> dict:
     checkpoint. Checks the artifacts of morpheus.py's epoch loop, the
     meshes, the real-view video, finite losses, the native marcher and the
     kernel launches each run reports; returns the seconds of each part."""
-    import glob
-
-    import cv2
     import numpy as np
     import yaml
-    from morpheus_tpu_torch.ops import meshing
     cfg = cli_config(workdir)
     cfg_path = os.path.join(workdir, "synthetic_bench_cli.yaml")
     with open(cfg_path, "w") as f:
@@ -1522,45 +1548,9 @@ def cli_phase(workdir: str) -> dict:
                 or n["segment_sum_sorted"]:
             raise AssertionError(f"CLI kernel launches {launches}")
 
-    want = (["mesh/init.ply"] + [f"mesh/mesh_000{e}.ply" for e in (1, 2, 3)]
-            + [f"mesh_all/mesh_000{e}_000{i}.ply" for e in (2, 3)
-               for i in range(cfg["data"]["synthetic_frames"])]
-            + [f"results/test{n}_ep0002_{k}.mp4"
-               for n in ("", "_180", "_cano", "_360", "_real")
-               for k in ("rgb", "depth")]
-            + [f"videos/video_{v}_000{e}.mp4" for v in ("real", "360")
-               for e in (2, 3)]
-            + [f"models/model_ep_000{e}.pkl" for e in (2, 3)]
-            + ["metric_3d.txt"])
-    missing = [p for p in want if not os.path.exists(os.path.join(ws, p))]
-    if missing:
-        raise AssertionError(f"CLI artifacts missing: {missing}")
-    with open(os.path.join(ws, "metric_3d.txt")) as f:
-        rows = [line.split(":")[0] for line in f if line.startswith("Ep_")]
-    if sorted(rows) != ["Ep_2", "Ep_3"]:
-        raise AssertionError(f"metric_3d.txt rows {rows}")
-    if glob.glob(os.path.join(ws, ".eval_inflight_*")):
-        raise AssertionError("an eval worker is still running")
-    radii = {}
-    for p in want:
-        if p.endswith(".ply"):
-            v, faces, _ = meshing.load_ply(os.path.join(ws, p))
-            radii[p] = float(np.median(np.linalg.norm(v, axis=-1)))
-            if not len(faces) or not radii[p] < 1.0:
-                raise AssertionError(f"{p}: {len(faces)} faces, median "
-                                     f"vertex radius {radii[p]}")
-    cap = cv2.VideoCapture(os.path.join(ws, "results",
-                                        "test_real_ep0002_rgb.mp4"))
-    ok, frame = cap.read()
-    cap.release()
-    if not ok:
-        raise AssertionError("test_real_ep0002_rgb.mp4 did not decode")
-    h, w = frame.shape[:2]
-    centre = float(frame[h // 2, w // 2].mean())
-    corner = float(frame[2, 2].mean())
-    if not centre < corner:
-        raise AssertionError(f"test_real frame 0: centre {centre} is not "
-                             f"darker than its corner {corner}")
+    radii, (centre, corner) = check_cli_artifacts(
+        ws, cfg["data"]["synthetic_frames"], mesh_epochs=(1, 2, 3),
+        final_epochs=(2, 3), video_epoch=2)
 
     with open(os.path.join(ws, "eval_worker.log")) as f:
         evals = [float(s) for s in re.findall(
@@ -1589,6 +1579,576 @@ def cli_phase(workdir: str) -> dict:
            "test_real_centre_corner": [centre, corner],
            "card": card_line()}
     log("cli:", json.dumps(out))
+    return out
+
+
+# ---- phase 11: the training step's other modes ------------------------------
+
+# configs/ab_exact.yaml's and the bf16 policy's timed steps (phase 11a, b)
+MODES_TIMED = 10
+MLP_BF16_TIMED = 5
+OPTION_STEPS = 3
+# the step's kernel lines of phase 11: device time over this many calls
+# (the exact step's streams are 4-8x the bench step's)
+MODES_K = 10
+
+# the tiny card-vs-CPU runs of phase 11d: (name, vjp_mode, overrides, loss
+# rtol). The bf16 policy's loss at 2^-7: the card's bf16 GEMM sums the same
+# exact products in f32 in another order than the CPU's f32 product, and
+# each hidden activation is rounded to bf16, so a sum near a rounding
+# boundary lands one bf16 ulp (2^-8) apart and carries through the layers;
+# the float32 modes at phase 8's 1e-3
+TINY_TOPO = {"train": {"topo_none": False, "normal_dir": True,
+                       "normal_smooth_3d_t": 0.1, "deform_smooth": 0.1,
+                       "deform_smooth_t": 0.1, "topo_smooth_t": 0.1},
+             "model": {"encode_topo": True}}
+MODE_REFERENCES = (
+    ("bf16_policy", "hist_rows",
+     {"tpu": {"compute_dtype": "bfloat16", "grad_payload": "float32"}},
+     2.0 ** -7),
+    ("exact_ladder", "hist_rows",
+     {"tpu": {"sample_budget": 0, "band_budget": 0, "smooth_budget": 0,
+              "band_reuse": False, "occ_query_interp": "linear",
+              "grad_payload": "float32"}}, 1e-3),
+    ("adan", "hist_rows", {"train": {"optim": "adan"}}, 1e-3),
+    ("topology", "hist_rows", TINY_TOPO, 1e-3))
+
+# phase 11e: the CLI on configs/ab_exact.yaml, depth cut only
+EXACT_CLI_CUTS = {"data": {"synthetic_frames": 2},
+                  "train": {"n_epochs": 2, "n_iters": 1},
+                  "exp": {"test_interval": 2, "mesh_interval": 1,
+                          "mesh_all_interval": 2,
+                          "mesh_all_eval_interval": 2}}
+
+
+def _finite(values) -> bool:
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def timed_steps(trainer, n: int, label: str) -> dict:
+    """n real steps, each ending in torch.cuda.synchronize, with every
+    kernel's launches counted from 0 just before and read after: the step
+    times, losses and launches per step; fails on a non-finite loss."""
+    import torch
+    step_ms, losses, per_step = [], [], {k: [] for k in wrappers()}
+    reset_counts()
+    for _ in range(n):
+        n0 = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.real_step(trainer.epoch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for k, v in read_counts().items():
+            per_step[k].append(v - n0[k])
+        losses.append(float(loss))
+    if not _finite(losses):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    return {"step_ms": statistics.median(step_ms),
+            "steps_ms": step_ms, "losses": losses,
+            "launches_per_step": per_step, "launches": read_counts()}
+
+
+def check_launches(label: str, mode: str, per_step: dict):
+    """Every kernel of `mode`'s path launched on every step, no other."""
+    for k, v in per_step.items():
+        if k in PATH_KERNELS[mode]:
+            if min(v) < 1:
+                raise AssertionError(f"{label}: {k} did not run on every "
+                                     f"step: {v}")
+        elif any(v):
+            raise AssertionError(f"{label}: {k} is not on this path but "
+                                 f"launched {v}")
+
+
+def capture_step(trainer) -> list:
+    """The kernel calls of one steady real step (no occupancy refresh), as
+    the step makes them (recording)."""
+    every = trainer.config["tpu"]["occ_update_every"]
+    if trainer.global_step % every == 0:
+        trainer.global_step += 1
+    calls = []
+    originals = recording(calls, ["step"])
+    try:
+        trainer.real_step(trainer.epoch)
+    finally:
+        restore(originals)
+    return calls
+
+
+def mode_lines(trainer, prefix: str, modes, rows: dict) -> dict:
+    """One steady step captured under each vjp_mode of `modes` (the
+    parameters are the same under every route), its calls checked and
+    timed as kernel lines <prefix>_<mode>_<i> appended to rows; returns
+    {mode: kernels called}."""
+    import torch
+    called = {}
+    for mode in modes:
+        set_vjp_mode(trainer, mode)
+        calls = capture_step(trainer)
+        called[mode] = [c["kernel"] for c in calls]
+        log(f"captured {prefix} {mode}:", json.dumps(called[mode]))
+        if set(called[mode]) != set(PATH_KERNELS[mode]):
+            raise AssertionError(f"{prefix} step under {mode} called "
+                                 f"{called[mode]}")
+        for k, r in step_lines(mode, calls, prefix=prefix, k=MODES_K).items():
+            rows[k] += r
+        del calls
+        torch.cuda.empty_cache()
+    return called
+
+
+def mode_run(device, ds, cfg, label: str, n_timed: int,
+             trace: bool = True) -> tuple:
+    """A Trainer of cfg on the card, all levels active: one epoch from
+    step 0 (its warmup occupancy update), then n_timed steps from global
+    step 256 (timed_steps) and, with `trace`, a 5-step trace. Fails on a
+    non-finite loss, on fewer than all but one parameter tensor moved in
+    the epoch, and unless each kernel of the route ran on every step and
+    no other ran. Returns (trainer, result)."""
+    import torch
+    from morpheus_tpu_torch.train.trainer import Trainer
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, ds, device=device)
+    log(f"{label}: {ds.num_frames} frames at {ds.H}x{ds.W}, "
+        f"{sum(p.numel() for p in trainer.params)} parameters, "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    trainer.epoch = cfg["train"]["n_epochs"]          # all levels active
+    mode = trainer.spec.grid.vjp_mode
+    before = [p.detach().clone() for p in trainer.params]
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    loss0 = trainer.train_one_epoch(n_iters=1)
+    torch.cuda.synchronize(device)
+    epoch_s = time.perf_counter() - t0
+    first, n_first = read_counts(), trainer.global_step
+    if not _finite([loss0]):
+        raise AssertionError(f"{label}: non-finite epoch loss {loss0}")
+    for k, v in first.items():
+        if (v < n_first) if k in PATH_KERNELS[mode] else v:
+            raise AssertionError(f"{label}: {k} launched {v} times in the "
+                                 f"epoch's {n_first} steps")
+    moved = sum(int(not torch.equal(a, b)) for a, b in zip(before,
+                                                          trainer.params))
+    if moved < len(before) - 1:
+        raise AssertionError(f"{label}: only {moved}/{len(before)} "
+                             "parameter tensors changed")
+    trainer.global_step = 256                          # past occ warmup
+    res = timed_steps(trainer, n_timed, label)
+    check_launches(label, mode, res["launches_per_step"])
+    res.update(epoch_s=epoch_s, epoch_steps=n_first, epoch_loss=loss0,
+               epoch_launches=first,
+               peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+               params_changed=f"{moved}/{len(before)}", card=card_line())
+    log(f"{label}:", json.dumps(res))
+    if trace:
+        res["trace"] = step_trace(trainer)
+    return trainer, res
+
+
+def option_steps(device, ds, label: str, cfg, occ, spec=None,
+                 n: int = OPTION_STEPS) -> dict:
+    """n real steps of a fresh Trainer of cfg (spec: Trainer.set_spec's
+    options) from the warmed occupancy grid `occ` at global step 257 (no
+    refresh): finite losses, every parameter group the real step trains
+    moved, its kernels launched on every step; the loss terms an option
+    adds are checked on one more forward."""
+    import torch
+    from morpheus_tpu_torch.ops import occupancy
+    from morpheus_tpu_torch.train import optim
+    from morpheus_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(cfg, ds, device=device)
+    if spec:
+        trainer.set_spec(**spec)
+    trainer.epoch = cfg["train"]["n_epochs"]
+    trainer._set_levels(trainer._active_levels())
+    trainer.occ = occupancy.OccupancyState(occs=occ.occs.clone(),
+                                           binaries=occ.binaries.clone())
+    trainer.global_step = 257
+    before = [p.detach().clone() for p in trainer.params]
+    res = timed_steps(trainer, n, label)
+    check_launches(label, trainer.spec.grid.vjp_mode,
+                   res["launches_per_step"])
+    names = trainer.optim.names
+    moved = {optim.group_of(n) for n, a, b in zip(names, before,
+                                                  trainer.params)
+             if not torch.equal(a, b)}
+    groups = {optim.group_of(n) for n in names}
+    if moved != groups:
+        raise AssertionError(f"{label}: groups {sorted(groups - moved)} did "
+                             "not move")
+    if trainer.optim.name != cfg["train"]["optim"] \
+            or float(trainer.optim.step) != n:
+        raise AssertionError(f"{label}: optimizer {trainer.optim.name} at "
+                             f"step {float(trainer.optim.step)}")
+    tr = cfg["train"]
+    want = [k for w, k in (("normal_smooth_3d_t", "loss_normal_perturb_t"),
+                           ("deform_smooth", "loss_deform_perturb"),
+                           ("deform_smooth_t", "loss_deform_perturb_t"),
+                           ("topo_smooth_t", "loss_topo_perturb_t"))
+            if tr[w] > 0]
+    if want:
+        _, out = trainer._real_loss(trainer.occ, trainer.draws,
+                                    trainer.epoch,
+                                    trainer.curr.max_level(trainer.epoch))
+        terms = {k: float(out[k].detach()) for k in want if k in out}
+        if set(terms) != set(want) or not _finite(terms.values()):
+            raise AssertionError(f"{label}: loss terms {terms}, want {want}")
+        res["terms"] = terms
+    res["groups_moved"] = sorted(moved)
+    if trainer.spec.mdt == torch.bfloat16:
+        res["gemm"] = bf16_gemm_check(trainer)
+    log(f"option {label}:", json.dumps(res))
+    return res
+
+
+# the bf16 MLP's GEMM, card against CPU on the same bf16 operands: each
+# f32 output and the bias gradient within this share of the largest
+# magnitude (both sum the same exact products of bf16 values in f32, in
+# another order); the bf16 gradients of the input and the weight within one
+# bf16 ulp (2^-7 of each entry's magnitude) of it, as each side rounds its
+# f32 product to bf16
+GEMM_TOL = 1e-5
+
+
+def bf16_gemm_check(trainer) -> dict:
+    """The mixed-precision MLP product (ops/mlp.py _BF16Linear: the card's
+    bf16 GEMM with an f32 output, the f32 bias added in f32) against the
+    CPU's f32 product of the same bf16 operands, at the step's own inputs:
+    each layer of the sdf and color nets at the inputs one forward of the
+    real loss gives it (each layer's input the card's output of the last).
+    Forward and the three gradients under one seeded f32 cotangent, at
+    GEMM_TOL. The control, the output of a bf16 linear (the product and the
+    bias rounded to bf16), is read against the same CPU output and must
+    lie outside GEMM_TOL. Returns the worst readings."""
+    import torch
+    from morpheus_tpu_torch.ops.mlp import _BF16Linear
+    field = trainer.step_field
+    nets = {"sdf_net": field.sdf_net, "color_net": field.color_net}
+    inputs, hooks = {}, []
+
+    def keep(name):
+        def hook(mod, args):
+            inputs.setdefault(name, args[0].detach().reshape(
+                -1, args[0].shape[-1]))
+        return hook
+
+    for name, net in nets.items():
+        hooks.append(net.register_forward_pre_hook(keep(name)))
+    try:
+        trainer._real_loss(trainer.occ, trainer.draws, trainer.epoch,
+                           trainer.curr.max_level(trainer.epoch))
+    finally:
+        for h in hooks:
+            h.remove()
+    gen = torch.Generator().manual_seed(0)
+
+    def run(x, w, b, g):
+        x, w, b = (t.detach().requires_grad_(True) for t in (x, w, b))
+        y = _BF16Linear.apply(x, w, b)
+        return (y.detach(),) + torch.autograd.grad(y, (x, w, b), g)
+
+    worst = {"y": 0.0, "gx": 0.0, "gw": 0.0, "gb": 0.0, "y_rel": 0.0,
+             "control": None}
+    shapes = []
+    for name, net in nets.items():
+        h = inputs[name].to(torch.bfloat16)
+        for l, lin in enumerate(net.layers):
+            w = lin.weight.detach().to(torch.bfloat16)
+            b = lin.bias.detach()
+            g = torch.randn((h.shape[0], w.shape[0]), generator=gen)
+            card = run(h, w, b, g.to(h.device))
+            cpu = run(h.cpu(), w.cpu(), b.cpu(), g)
+            for key, c, r in zip(("y", "gx", "gw", "gb"), card, cpu):
+                c, r = c.float().cpu(), r.float()
+                lim = GEMM_TOL * float(r.abs().max())
+                if key in ("gx", "gw"):
+                    lim = lim + 2.0 ** -7 * r.abs()
+                err = (c - r).abs()
+                if not bool((err <= lim).all()):
+                    raise AssertionError(
+                        f"bf16 GEMM {name}.{l} {key}: max err "
+                        f"{float(err.max())} over its limit")
+                worst[key] = max(worst[key], float((err / lim).max()))
+                if key == "y":
+                    worst["y_rel"] = max(worst["y_rel"], float(
+                        err.max()) / float(r.abs().max()))
+            ctl = torch.nn.functional.linear(h, w, b.to(torch.bfloat16))
+            ctl = (ctl.float().cpu() - cpu[0]).abs().max() / float(
+                cpu[0].abs().max())
+            if float(ctl) <= GEMM_TOL:
+                raise AssertionError(
+                    f"bf16 GEMM {name}.{l}: the bf16-rounded control "
+                    f"({float(ctl)}) is inside the limit")
+            worst["control"] = float(ctl) if worst["control"] is None \
+                else min(worst["control"], float(ctl))
+            shapes.append([name, l] + list(h.shape) + [w.shape[0]])
+            h = torch.relu(card[0]).to(torch.bfloat16) \
+                if l != len(net.layers) - 1 else None
+    res = {"tol": GEMM_TOL, "shapes": shapes,
+           "err_over_limit": {k: worst[k] for k in ("y", "gx", "gw", "gb")},
+           "y_rel_err": worst["y_rel"],
+           "control_rel_err_min": worst["control"]}
+    log("bf16 gemm:", json.dumps(res))
+    return res
+
+
+def sds_adan_step(device, ds) -> dict:
+    """One SDS step of configs/synthetic_full.yaml (the full-size
+    "<random>" Zero123) under train.optim adan at the epoch-300 point,
+    where the deform freeze is on, after one real step: Adan steps in the
+    virtual step, the frozen groups stay, the groups every view reaches
+    move."""
+    import torch
+    from morpheus_tpu_torch.__main__ import build_guidance
+    from morpheus_tpu_torch.config import load_config
+    from morpheus_tpu_torch.train import optim
+    from morpheus_tpu_torch.train.trainer import Trainer
+    cfg = load_config(os.path.join(HERE, "configs", "synthetic_full.yaml"))
+    cfg["train"]["optim"] = "adan"
+    trainer = Trainer(cfg, ds, device=device,
+                      guidance=build_guidance(cfg, device, log))
+    epoch = SDS_POINTS[0][0]
+    trainer.epoch = epoch
+    trainer._set_levels(trainer._active_levels())
+    if not trainer.curr.freeze_deform(epoch):
+        raise AssertionError(f"epoch {epoch}: the freeze is off")
+    sampler = trainer.virtual_sampler(trainer._novel_view_scale())
+    # one real step first (the warmup occupancy update with it): at the
+    # geometric init the sdf reads no grid feature, so a first step gives
+    # the sdf grid no gradient
+    trainer.real_step(epoch)
+    names = trainer.optim.names
+    before = [p.detach().clone() for p in trainer.params]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = trainer.virtual_step(epoch, sampler)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    moved = {optim.group_of(n) for n, a, b in zip(names, before,
+                                                  trainer.params)
+             if not torch.equal(a, b)}
+    reached = {"sdf_grid", "color_grid", "sdf_net", "color_net", "beta"}
+    if not _finite([float(loss)]) or moved & set(optim.FREEZE_GROUPS) \
+            or not reached <= moved or trainer.optim.name != "adan" \
+            or float(trainer.optim.step) != 2.0 \
+            or launches["level_histogram"] < 1:
+        raise AssertionError(f"SDS Adan step: loss {float(loss)}, moved "
+                             f"{sorted(moved)}, launches {launches}")
+    out = {"epoch": epoch, "rays": sampler.H * sampler.W,
+           "loss": float(loss), "step_ms_first": ms,
+           "groups_moved": sorted(moved), "launches": launches,
+           "card": card_line()}
+    log("sds adan:", json.dumps(out))
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def exact_cli_config(workdir: str) -> dict:
+    """configs/ab_exact.yaml with EXACT_CLI_CUTS, its workspace under
+    workdir: the raw YAML dict phase 11e writes out."""
+    import yaml
+    with open(os.path.join(HERE, "configs", "ab_exact.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    for section, kv in EXACT_CLI_CUTS.items():
+        cfg[section].update(kv)
+    cfg["exp"].update(output=os.path.join(workdir, "exp"),
+                      exp_name="ab_exact")
+    return cfg
+
+
+def exact_cli_phase(workdir: str) -> dict:
+    """Phase 11e: python -m morpheus_tpu_torch --config configs/ab_exact.yaml
+    on the card, widths kept, depth cut (EXACT_CLI_CUTS: 2 frames, 2 epochs
+    of 1 iteration): the artifacts, finite losses, the native marcher and
+    the kernel launches (hist_rows: the histogram only), as phase 9."""
+    import numpy as np
+    import yaml
+    cfg = exact_cli_config(workdir)
+    cfg_path = os.path.join(workdir, "ab_exact_cli.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    log("exact cli phase: configs/ab_exact.yaml cut to",
+        json.dumps(EXACT_CLI_CUTS))
+    ws = os.path.join(cfg["exp"]["output"], cfg["exp"]["exp_name"])
+    run = _run_cli(cfg_path, [], os.path.join(workdir, "exact_cli.log"))
+    stats = _json_lines(run, "epoch-stats")
+    losses = [s["loss"] for s in stats]
+    if [s["epoch"] for s in stats] != [1, 2] or not all(np.isfinite(losses)):
+        raise AssertionError(f"exact CLI epochs {stats}")
+    if any(e["backend"] != "native" for e in _json_lines(run, "mesh-export")):
+        raise AssertionError("the native marcher did not run")
+    launches = _json_lines(run, "kernel-launches")[0]
+    if launches["level_histogram"] < 20 * 8 or launches["level_gather"] \
+            or launches["segment_sum_sorted"]:
+        raise AssertionError(f"exact CLI kernel launches {launches}")
+    radii, centre_corner = check_cli_artifacts(
+        ws, cfg["data"]["synthetic_frames"], mesh_epochs=(1, 2),
+        final_epochs=(2,), video_epoch=2)
+    out = {"frames": cfg["data"]["synthetic_frames"],
+           "epoch_train_s": [s["train_s"] for s in stats], "losses": losses,
+           "kernel_launches": launches,
+           "median_vertex_radius": [min(radii.values()),
+                                    max(radii.values())],
+           "test_real_centre_corner": list(centre_corner),
+           "card": card_line()}
+    log("exact cli:", json.dumps(out))
+    return out
+
+
+def modes_phase(device, ds, workdir: str) -> tuple:
+    """Phase 11: the training step's other modes on the card.
+    (a) configs/ab_exact.yaml at full width (32 frames at 360^2, 2048 rays,
+        64 samples a ray, no sample, smooth or band budget, the exact
+        surface-band ladder, f32 payloads, linear occupancy queries): one
+        epoch from step 0, MODES_TIMED timed steps (exact_step_ms), a
+        5-step trace, then one steady step captured under each kernel
+        route (lines step_exact_<mode>_<i>);
+    (b) configs/synthetic_bench.yaml under tpu.compute_dtype bfloat16
+        (bf16 tables and MLPs): the same under hist_rows (bf16_step_ms),
+        then one captured step under each route (step_bf16_<mode>_<i>),
+        and (from its warmed occupancy grid, as (c)) MLP_BF16_TIMED steps
+        with tpu.mlp_dtype bfloat16 alone;
+    (c) from the same warmed occupancy grid, OPTION_STEPS steps of each
+        further option at synthetic_bench width: train.optim adan,
+        the topology field with every dormant smoothness term, normal_mode
+        fd, encode_topo, smoothstep; and one SDS step of
+        configs/synthetic_full.yaml under Adan with the freeze on;
+    (d) tiny card-vs-CPU runs (MODE_REFERENCES), and under (b)'s
+        mlp_bf16 steps the bf16 MLP's GEMMs, card against CPU at the
+        step's own inputs (bf16_gemm_check);
+    (e) the CLI on configs/ab_exact.yaml (exact_cli_phase).
+    Returns (results, kernel lines by kernel)."""
+    import torch
+    from morpheus_tpu_torch.config import load_config
+    rows = {k: [] for k in CAPTURED}
+    out = {}
+
+    cfg = load_config(os.path.join(HERE, "configs", "ab_exact.yaml"))
+    trainer, out["exact"] = mode_run(device, ds, cfg, "exact", MODES_TIMED)
+    # the main closure, the ladder's n1 and n2 and the surface-point query,
+    # each a histogram for the packed prefix and one for the hashed tail
+    per = out["exact"]["launches_per_step"]["level_histogram"]
+    if min(per) < 8:
+        raise AssertionError(f"exact step: histogram launches {per}")
+    out["exact"]["captured"] = mode_lines(trainer, "step_exact",
+                                          PATH_KERNELS, rows)
+    del trainer
+    torch.cuda.empty_cache()
+
+    cfg = load_config(os.path.join(HERE, "configs", "synthetic_bench.yaml"))
+    cfg["tpu"]["compute_dtype"] = "bfloat16"
+    trainer, out["bf16"] = mode_run(device, ds, cfg, "bf16", MODES_TIMED)
+    out["bf16"]["captured"] = mode_lines(trainer, "step_bf16", PATH_KERNELS,
+                                         rows)
+    occ = trainer.occ
+    del trainer
+    torch.cuda.empty_cache()
+
+    options = {"mlp_bf16": ({"tpu": {"mlp_dtype": "bfloat16"}}, None),
+               "adan": ({"train": {"optim": "adan"}}, None),
+               "topology": ({"train": dict(TINY_TOPO["train"])}, None),
+               "fd": ({}, {"normal_mode": "fd"}),
+               "encode_topo": ({"model": {"encode_topo": True}}, None),
+               "smoothstep": ({}, {"grid": {"interpolation": "smoothstep"}})}
+    out["options"] = {}
+    for label, (over, spec) in options.items():
+        cfg = load_config(os.path.join(HERE, "configs",
+                                       "synthetic_bench.yaml"))
+        for section, kv in over.items():
+            cfg[section].update(kv)
+        out["options"][label] = option_steps(
+            device, ds, label, cfg, occ, spec,
+            n=MLP_BF16_TIMED if label == "mlp_bf16" else OPTION_STEPS)
+        torch.cuda.empty_cache()
+    out["options"]["sds_adan"] = sds_adan_step(device, ds)
+
+    out["references"] = {
+        name: small_reference(device, mode, over, name=name, loss_rtol=rtol)
+        for name, mode, over, rtol in MODE_REFERENCES}
+    out["cli"] = exact_cli_phase(workdir)
+    summary = {"exact_step_ms": out["exact"]["step_ms"],
+               "bf16_step_ms": out["bf16"]["step_ms"],
+               "mlp_bf16_step_ms": out["options"]["mlp_bf16"]["step_ms"],
+               "exact_trace": out["exact"]["trace"],
+               "bf16_trace": out["bf16"]["trace"], "card": card_line()}
+    log("modes:", json.dumps(summary))
+    return out, rows
+
+
+def largest_row(step: list) -> dict:
+    """The kernel line of the largest call among `step`'s lines."""
+    return max(step, key=lambda r: r["L"] * r["Np"] * r["C"]
+               if "Np" in r else r["N"] * r["C"])
+
+
+def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row) -> dict:
+    """The {"kernels": [...]} record: each kernel's numbers at its largest
+    call of a steady step under its own mode (rows: every kernel line,
+    by kernel), its launches on the main path, per launch in each mode's
+    trace, in the CLI runs, at the SDS points and in phase 11, and its
+    largest SDS, exact and bf16 step calls (sds_case, exact_case,
+    bf16_case); level_gather's mesh-export call (mesh_case)."""
+
+    def entry(name, replaces, mode):
+        # the kernel's numbers at its largest captured call of a step under
+        # its own mode (every case is on a line above); launches from that
+        # mode's main path; device time per launch from each mode's trace
+        row = largest_row([r for r in rows[name]
+                           if r["case"].startswith(f"step_{mode}_")
+                           and r["phase"] == "step"])
+        return {"name": name, "route": "cuda",
+                "source": f"morpheus_tpu_torch/kernels/{name}.cu",
+                "replaces": replaces, "case": row["case"],
+                "launches": main[mode]["launches"][name],
+                "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+                "ms": row["ms"], "call_ms": row["call_ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "device_ms_per_launch": {
+                    m: main[m]["trace"][f"{name}_ms_per_launch"]
+                    for m, ks in PATH_KERNELS.items() if name in ks},
+                "cli_launches": [n[name] for n in cli["kernel_launches"]],
+                "sds_launches": {f"epoch_{p['epoch']}": p["launches"][name]
+                                 for p in sds["points"]},
+                "sds_cli_launches": [n[name]
+                                     for n in sds_cli["kernel_launches"]],
+                "sds_case": largest_case(name, f"step_sds_{mode}_"),
+                "exact_case": largest_case(name, f"step_exact_{mode}_"),
+                "bf16_case": largest_case(name, f"step_bf16_{mode}_"),
+                "modes_launches": {
+                    "exact": modes["exact"]["launches"][name],
+                    "bf16": modes["bf16"]["launches"][name],
+                    **{k: v["launches"][name]
+                       for k, v in modes["options"].items()},
+                    "exact_cli": modes["cli"]["kernel_launches"][name]}}
+
+    def largest_case(name, prefix):
+        # the kernel's largest call among the lines of one captured step
+        # (the SDS step at scale 0.5, the exact step, the bf16 step) under
+        # its own mode
+        row = largest_row([r for r in rows[name]
+                           if r["case"].startswith(prefix)])
+        return {k: row[k] for k in ("case", "dtype", "table", "max_abs_err",
+                                    "ms", "call_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms") if k in row}
+
+    out = {"kernels": [
+        entry("level_histogram", "morpheus_tpu/ops/hist_pallas.py:105",
+              "hist_rows"),
+        entry("segment_sum_sorted", "morpheus_tpu/ops/segsum_pallas.py:81",
+              "sort_pallas_rows"),
+        entry("level_gather", "morpheus_tpu/ops/gather_pallas.py:79",
+              "mxu_rows")]}
+    # the mesh export's call under mxu_rows (phase 9)
+    out["kernels"][2]["mesh_case"] = {
+        k: mesh_row[k] for k in ("case", "launches", "L", "Np", "C", "S",
+                                 "max_abs_err", "ms", "call_ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}
     return out
 
 
@@ -1632,6 +2192,15 @@ def run(device, card: str, workdir: str) -> int:
         log("sds only: the SDS phase, its kernel lines and the SDS CLI "
             "passed", json.dumps({k: len(v) for k, v in sds_rows.items()}))
         return 0
+    if "--modes-only" in sys.argv[1:]:
+        from morpheus_tpu_torch.config import load_config
+        from morpheus_tpu_torch.data.dataset import load_synthetic
+        ds = load_synthetic(load_config(os.path.join(
+            HERE, "configs", "synthetic_bench.yaml")))
+        modes, modes_rows = modes_phase(device, ds, workdir)
+        log("modes only: phase 11 passed", json.dumps(
+            {k: len(v) for k, v in modes_rows.items()}))
+        return 0
     if "--cli-only" in sys.argv[1:]:
         check_mesh_gather(device, workdir)
         cli_phase(workdir)
@@ -1671,7 +2240,6 @@ def run(device, card: str, workdir: str) -> int:
     sds, sds_rows = sds_phase(device, ds)
     for k, r in sds_rows.items():
         rows[k] += r
-    del ds
     for mode in PATH_KERNELS:
         small_reference(device, mode)
     sds_small_reference(device)
@@ -1682,63 +2250,27 @@ def run(device, card: str, workdir: str) -> int:
     rows["level_gather"].append(mesh_row)
     cli = cli_phase(workdir)
     sds_cli = sds_cli_phase(workdir)
+    # phase 11: the other modes of the training step
+    modes, modes_rows = modes_phase(device, ds, workdir)
+    for k, r in modes_rows.items():
+        rows[k] += r
+    del ds
 
-    def entry(name, replaces, mode):
-        # the kernel's numbers at its largest captured call of a step under
-        # its own mode (every case is on a line above); launches from that
-        # mode's main path; device time per launch from each mode's trace
-        step = [r for r in rows[name] if r["case"].startswith(f"step_{mode}_")
-                and r["phase"] == "step"]
-        row = max(step, key=lambda r: r["L"] * r["Np"] * r["C"]
-                  if "Np" in r else r["N"] * r["C"])
-        return {"name": name, "route": "cuda",
-                "source": f"morpheus_tpu_torch/kernels/{name}.cu",
-                "replaces": replaces, "case": row["case"],
-                "launches": main[mode]["launches"][name],
-                "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
-                "ms": row["ms"], "call_ms": row["call_ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "device_ms_per_launch": {
-                    m: main[m]["trace"][f"{name}_ms_per_launch"]
-                    for m, ks in PATH_KERNELS.items() if name in ks},
-                "cli_launches": [n[name] for n in cli["kernel_launches"]],
-                "sds_launches": {f"epoch_{p['epoch']}": p["launches"][name]
-                                 for p in sds["points"]},
-                "sds_cli_launches": [n[name]
-                                     for n in sds_cli["kernel_launches"]],
-                "sds_case": sds_case(name, mode)}
-
-    def sds_case(name, mode):
-        # the kernel's largest call of the SDS step (scale 0.5) under its
-        # mode, on the step_sds_<mode>_* lines
-        step = [r for r in rows[name]
-                if r["case"].startswith(f"step_sds_{mode}_")]
-        row = max(step, key=lambda r: r["L"] * r["Np"] * r["C"]
-                  if "Np" in r else r["N"] * r["C"])
-        return {k: row[k] for k in ("case", "max_abs_err", "ms", "call_ms",
-                                    "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")}
-
-    kernels_line = {"kernels": [
-        entry("level_histogram", "morpheus_tpu/ops/hist_pallas.py:105",
-              "hist_rows"),
-        entry("segment_sum_sorted", "morpheus_tpu/ops/segsum_pallas.py:81",
-              "sort_pallas_rows"),
-        entry("level_gather", "morpheus_tpu/ops/gather_pallas.py:79",
-              "mxu_rows")]}
-    # the mesh export's call under mxu_rows (phase 9)
-    kernels_line["kernels"][2]["mesh_case"] = {
-        k: mesh_row[k] for k in ("case", "launches", "L", "Np", "C", "S",
-                                 "max_abs_err", "ms", "call_ms", "plain_ms",
-                                 "bound_ms", "bound_by", "library_ms")}
+    kernels = kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row)
     log("sds:", json.dumps({"setup": sds["setup"], "points": [
         {k: p[k] for k in ("epoch", "rays", "freeze", "active_levels",
                            "sds_step_ms", "peak_mem_gb", "launches_per_step",
                            "trace")}
         for p in sds["points"]], "cli": sds_cli}))
+    log("modes summary:", json.dumps({
+        "exact_step_ms": modes["exact"]["step_ms"],
+        "bf16_step_ms": modes["bf16"]["step_ms"],
+        "options_step_ms": {k: v["step_ms"]
+                            for k, v in modes["options"].items()
+                            if "step_ms" in v},
+        "references": modes["references"]}))
     log(card)
-    log(json.dumps(kernels_line))
+    log(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

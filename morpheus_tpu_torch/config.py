@@ -142,8 +142,9 @@ DEFAULTS: dict[str, dict[str, Any]] = {
         "occ_threshold": 0.01,
         "occ_query_interp": "nearest",  # hash interpolation of occupancy
                                      # density queries ('nearest' | 'linear')
-        "compute_dtype": "float32",  # port: float32 only
-        "mlp_dtype": "float32",      # port: float32 only
+        "compute_dtype": "float32",  # 'bfloat16': bf16 hash tables and
+                                     # MLP products, f32 sums and weights
+        "mlp_dtype": "float32",      # 'bfloat16': the MLP half alone
         "grad_payload": "float32",   # hash-grid cotangent payload type
                                      # ('float32' | 'bfloat16', f32 sums)
         "vjp_mode": "hist_rows",     # hash-grid embedding-cotangent route

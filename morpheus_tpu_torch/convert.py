@@ -69,6 +69,15 @@ class _AdamState(NamedTuple):
     nu: dict
 
 
+class _AdanState(NamedTuple):
+    """Stand-in for morpheus_tpu.train.optim.AdanState in a JAX pickle."""
+    step: object
+    m: dict
+    v: dict
+    n: dict
+    prev_grad: dict
+
+
 class _OccupancyState(NamedTuple):
     """Stand-in for morpheus_tpu.ops.occupancy.OccupancyState."""
     occs: object
@@ -77,20 +86,18 @@ class _OccupancyState(NamedTuple):
 
 class _JaxCkptUnpickler(pickle.Unpickler):
     """Reads a JAX `model_ep_*.pkl` without importing JAX or the JAX
-    package: its two NamedTuple classes map to the stand-ins above, numpy's
-    classes load as usual, and every other class is refused."""
+    package: its NamedTuple classes (an optimizer state, Adam's or Adan's,
+    and the occupancy state) map to the stand-ins above, numpy's classes
+    load as usual, and every other class is refused."""
 
     STAND_INS = {("morpheus_tpu.train.optim", "AdamState"): _AdamState,
+                 ("morpheus_tpu.train.optim", "AdanState"): _AdanState,
                  ("morpheus_tpu.ops.occupancy", "OccupancyState"):
                      _OccupancyState}
 
     def find_class(self, module, name):
         if (module, name) in self.STAND_INS:
             return self.STAND_INS[(module, name)]
-        if (module, name) == ("morpheus_tpu.train.optim", "AdanState"):
-            raise NotImplementedError(
-                "a checkpoint of the Adan optimizer: the port runs Adam only "
-                "(ROADMAP.md queue A, item A15)")
         if module.split(".")[0] != "numpy":
             raise pickle.UnpicklingError(
                 f"refusing {module}.{name} in a JAX checkpoint")
@@ -111,10 +118,12 @@ def load_jax_ckpt(path: str) -> dict:
         payload = _JaxCkptUnpickler(f).load()
     st = payload["state"]
     opt = st["opt_state"]
+    name = "adan" if isinstance(opt, _AdanState) else "adam"
     return {
         "params": _named(st["params"]),
-        "optim": {"name": "adam", "step": float(np.asarray(opt.step)),
-                  "mu": _named(opt.mu), "nu": _named(opt.nu)},
+        "optim": {"name": name, "step": float(np.asarray(opt.step)),
+                  **{k: _named(v) for k, v in opt._asdict().items()
+                     if k != "step"}},
         "ema": _named(st["ema"]),
         "occ": {"occs": np.asarray(st["occ"].occs),
                 "binaries": np.asarray(st["occ"].binaries)},

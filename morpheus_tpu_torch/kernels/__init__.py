@@ -39,6 +39,7 @@ SIGNATURES = {
     "level_gather": {
         "level_gather_s1": [_P, _P, _P, _I, _I64, _I, _I64, _P, _P],
         "level_gather_s3": [_P, _P, _P, _I, _I64, _I, _I64, _P, _P],
+        "level_gather_bf16": [_P, _P, _P, _I, _I64, _I, _I64, _P, _P],
     },
 }
 

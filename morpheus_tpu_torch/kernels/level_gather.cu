@@ -34,6 +34,13 @@
 // aligned for the vector access, takes the generic kernel of the same family:
 // one thread per (update, channel).
 //
+// A bf16 table (the bfloat16 mixed-precision policy casts the table before the
+// gather, as morpheus_tpu/ops/hashgrid.py:505-506 does) takes the entry
+// level_gather_bf16: every split of a bf16 value is the value itself (t2 = t3 =
+// 0), so S does not matter and each row is read as C bf16 values (a 4- or
+// 8-byte load) and widened to f32 exactly. The bf16 table is half the bytes;
+// the output, the largest stream, is the same.
+//
 // Built with: nvcc -gencode=arch=compute_90a,code=sm_90a -shared -Xcompiler -fPIC
 // and called through the plain C entry points below (ctypes).
 
@@ -81,16 +88,49 @@ template <> struct Row<4> {
   }
 };
 
-template <int C, int S>
+// how the rows kernel reads one table row and turns it into C f32 outputs:
+// F32Rows splits an f32 row into S bf16 planes and sums them back; Bf16Rows
+// widens a row of C bf16 values (element 0 in the low half of each word)
+template <int C, int S> struct F32Rows {
+  using In = typename Row<C>::T;
+  using Out = typename Row<C>::T;
+  static __device__ __forceinline__ Out convert(In x) {
+    return Row<C>::template split_row<S>(x);
+  }
+};
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+template <int C> struct Bf16Rows;
+template <> struct Bf16Rows<2> {
+  using In = uint32_t;
+  using Out = float2;
+  static __device__ __forceinline__ Out convert(In x) {
+    return make_float2(bf16_lo(x), bf16_hi(x));
+  }
+};
+template <> struct Bf16Rows<4> {
+  using In = uint2;
+  using Out = float4;
+  static __device__ __forceinline__ Out convert(In x) {
+    return make_float4(bf16_lo(x.x), bf16_hi(x.x), bf16_lo(x.y), bf16_hi(x.y));
+  }
+};
+
+template <typename R>
 __global__ void __launch_bounds__(THREADS)
-level_gather_rows_kernel(const int32_t* __restrict__ idx, const float* __restrict__ table,
+level_gather_rows_kernel(const int32_t* __restrict__ idx, const void* __restrict__ table,
                          LevelStarts starts, float* __restrict__ out, int64_t n_per_level,
                          int64_t n_rows) {
-  using Vec = typename Row<C>::T;
+  using In = typename R::In;
+  using Vec = typename R::Out;
   const int level = blockIdx.y;
   const int32_t* lidx = idx + (int64_t)level * n_per_level;
   Vec* lout = reinterpret_cast<Vec*>(out) + (int64_t)level * n_per_level;
-  const Vec* rows = reinterpret_cast<const Vec*>(table);
+  const In* rows = reinterpret_cast<const In*>(table);
   const int64_t start = starts.v[level];
   const int64_t base = (int64_t)blockIdx.x * (THREADS * UNROLL) + threadIdx.x;
 
@@ -100,26 +140,36 @@ level_gather_rows_kernel(const int32_t* __restrict__ idx, const float* __restric
     const int64_t i = base + u * THREADS;
     row[u] = i < n_per_level ? start + __ldcs(lidx + i) : -1;
   }
-  Vec x[UNROLL];
+  In x[UNROLL];
 #pragma unroll
   for (int u = 0; u < UNROLL; ++u) {
     if (row[u] >= 0 && row[u] < n_rows) {
       x[u] = __ldg(rows + row[u]);
     } else {
-      x[u] = Vec{};
+      x[u] = In{};
     }
   }
 #pragma unroll
   for (int u = 0; u < UNROLL; ++u) {
     const int64_t i = base + u * THREADS;
-    if (i < n_per_level) __stcs(lout + i, Row<C>::template split_row<S>(x[u]));
+    if (i < n_per_level) __stcs(lout + i, R::convert(x[u]));
   }
 }
 
-// generic: one thread per (update, channel)
+// one table value as f32: split into S planes (f32 table), widened (bf16)
 template <int S>
+__device__ __forceinline__ float value(const float* table, int64_t k) {
+  return split<S>(table[k]);
+}
+template <int S>
+__device__ __forceinline__ float value(const __nv_bfloat16* table, int64_t k) {
+  return __bfloat162float(table[k]);
+}
+
+// generic: one thread per (update, channel)
+template <int S, typename Tab>
 __global__ void __launch_bounds__(THREADS)
-level_gather_kernel(const int32_t* __restrict__ idx, const float* __restrict__ table,
+level_gather_kernel(const int32_t* __restrict__ idx, const Tab* __restrict__ table,
                     LevelStarts starts, float* __restrict__ out, int64_t n_per_level,
                     int n_chan, int64_t n_rows) {
   const int level = blockIdx.y;
@@ -133,7 +183,7 @@ level_gather_kernel(const int32_t* __restrict__ idx, const float* __restrict__ t
     const uint32_t i = j / (uint32_t)n_chan;
     const uint32_t c = j - i * (uint32_t)n_chan;
     const int64_t row = start + lidx[i];
-    lout[j] = row >= 0 && row < n_rows ? split<S>(table[row * n_chan + c]) : 0.0f;
+    lout[j] = row >= 0 && row < n_rows ? value<S>(table, row * n_chan + c) : 0.0f;
   }
 }
 
@@ -141,18 +191,19 @@ static bool aligned(const void* p, size_t bytes) {
   return (uintptr_t)p % bytes == 0;
 }
 
-template <int C, int S>
-static void launch_rows(const int32_t* idx, const float* table, const LevelStarts& starts,
+template <typename R>
+static void launch_rows(const int32_t* idx, const void* table, const LevelStarts& starts,
                         int n_levels, int64_t n_per_level, int64_t n_rows, float* out,
                         cudaStream_t stream) {
   const int64_t blocks = (n_per_level + THREADS * UNROLL - 1) / (THREADS * UNROLL);
   const dim3 grid((unsigned)blocks, (unsigned)n_levels);
-  level_gather_rows_kernel<C, S>
+  level_gather_rows_kernel<R>
       <<<grid, THREADS, 0, stream>>>(idx, table, starts, out, n_per_level, n_rows);
 }
 
-template <int S>
-static int launch(const int32_t* idx, const float* table, const int64_t* level_starts,
+// Tab is float (S = 1 or 3) or __nv_bfloat16 (S unused)
+template <int S, typename Tab>
+static int launch(const int32_t* idx, const Tab* table, const int64_t* level_starts,
                   int n_levels, int64_t n_per_level, int n_chan, int64_t n_rows, float* out,
                   cudaStream_t stream) {
   // one level's (update, channel) pairs are counted in 32 bits
@@ -162,19 +213,26 @@ static int launch(const int32_t* idx, const float* table, const int64_t* level_s
   LevelStarts starts;
   for (int l = 0; l < n_levels; ++l) starts.v[l] = level_starts[l];
   if (n_per_level == 0) return 0;
-  const size_t row_bytes = n_chan * sizeof(float);
-  const bool vec = aligned(table, row_bytes) && aligned(out, row_bytes);
+  constexpr bool bf16 = sizeof(Tab) == 2;
+  const bool vec = aligned(table, n_chan * sizeof(Tab)) &&
+                   aligned(out, n_chan * sizeof(float));
   if (vec && n_chan == 2) {
-    launch_rows<2, S>(idx, table, starts, n_levels, n_per_level, n_rows, out, stream);
+    if (bf16) launch_rows<Bf16Rows<2>>(idx, table, starts, n_levels, n_per_level, n_rows,
+                                       out, stream);
+    else launch_rows<F32Rows<2, S>>(idx, table, starts, n_levels, n_per_level, n_rows,
+                                    out, stream);
   } else if (vec && n_chan == 4) {
-    launch_rows<4, S>(idx, table, starts, n_levels, n_per_level, n_rows, out, stream);
+    if (bf16) launch_rows<Bf16Rows<4>>(idx, table, starts, n_levels, n_per_level, n_rows,
+                                       out, stream);
+    else launch_rows<F32Rows<4, S>>(idx, table, starts, n_levels, n_per_level, n_rows,
+                                    out, stream);
   } else {
     const int64_t n_pairs = n_per_level * n_chan;
     int64_t blocks = (n_pairs + THREADS - 1) / THREADS;
     if (blocks > 4096) blocks = 4096;  // grid-stride beyond that
     const dim3 grid((unsigned)blocks, (unsigned)n_levels);
-    level_gather_kernel<S><<<grid, THREADS, 0, stream>>>(idx, table, starts, out,
-                                                         n_per_level, n_chan, n_rows);
+    level_gather_kernel<S, Tab><<<grid, THREADS, 0, stream>>>(
+        idx, table, starts, out, n_per_level, n_chan, n_rows);
   }
   return (int)cudaGetLastError();
 }
@@ -192,6 +250,13 @@ int level_gather_s3(const void* idx, const void* table, const int64_t* level_sta
                     int n_levels, int64_t n_per_level, int n_chan, int64_t n_rows, void* out,
                     void* stream) {
   return launch<3>((const int32_t*)idx, (const float*)table, level_starts, n_levels,
+                   n_per_level, n_chan, n_rows, (float*)out, (cudaStream_t)stream);
+}
+
+int level_gather_bf16(const void* idx, const void* table, const int64_t* level_starts,
+                      int n_levels, int64_t n_per_level, int n_chan, int64_t n_rows, void* out,
+                      void* stream) {
+  return launch<1>((const int32_t*)idx, (const __nv_bfloat16*)table, level_starts, n_levels,
                    n_per_level, n_chan, n_rows, (float*)out, (cudaStream_t)stream);
 }
 

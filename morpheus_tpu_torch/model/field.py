@@ -7,7 +7,13 @@ sdf_net, color_net, beta, color_grid, app_code, bg_net); convert.py maps one
 to the other. Normals are the analytic gradient of the SDF, taken with
 `torch.autograd.grad(..., create_graph=True)` over one closure, so that the
 sdf value, the color features and any extra normal sites share one hash-grid
-encode and its backward runs one histogram per stream.
+encode and its backward runs one histogram per stream; `normal_mode: fd`
+takes central differences instead (JAX field.py:364-376).
+
+The mixed-precision policy (FieldSpec.compute_dtype / mlp_dtype
+'bfloat16', JAX field.py:75-85): compute_dtype casts the hash tables to
+bf16 before the gather and implies mlp_dtype, which runs every MLP's
+products in bf16 with f32 sums (ops/mlp.py). Parameters stay f32.
 """
 from __future__ import annotations
 
@@ -57,25 +63,33 @@ class FieldSpec:
         default_factory=lambda: hashgrid.HashGridSpec(
             input_dim=3, num_levels=16, level_dim=2, base_resolution=16,
             log2_hashmap_size=15, desired_resolution=128))
-    normal_mode: str = "analytic"
-    compute_dtype: str = "float32"
-    mlp_dtype: str = "float32"
+    normal_mode: str = "analytic"   # 'analytic' | 'fd'
+    fd_eps: float = 2e-3
+    compute_dtype: str = "float32"  # 'bfloat16': bf16 tables and MLPs
+    mlp_dtype: str = "float32"      # 'bfloat16': bf16 MLP products only
     # static hash-level truncation of the coarse-to-fine curriculum
     active_levels: int | None = None
 
     def __post_init__(self):
-        if self.normal_mode != "analytic":
-            raise NotImplementedError(
-                f"normal_mode {self.normal_mode!r}: the port implements "
-                "'analytic' only (ROADMAP.md queue A, item A14)")
+        if self.normal_mode not in ("analytic", "fd"):
+            raise ValueError(f"normal_mode {self.normal_mode!r} not in "
+                             "('analytic', 'fd')")
         for k in ("compute_dtype", "mlp_dtype"):
-            if getattr(self, k) != "float32":
-                raise NotImplementedError(
-                    f"{k} {getattr(self, k)!r}: the port runs float32 only "
-                    "(ROADMAP.md queue A, item A15)")
-        if self.encode_topo:
-            raise NotImplementedError(
-                "encode_topo: not ported (ROADMAP.md queue A, item A14)")
+            if getattr(self, k) not in ("float32", "bfloat16"):
+                raise ValueError(f"{k} {getattr(self, k)!r} not in "
+                                 "('float32', 'bfloat16')")
+
+    @property
+    def cdt(self):
+        """Hash-table gather type (None keeps f32)."""
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else None
+
+    @property
+    def mdt(self):
+        """MLP product type (None keeps f32); compute_dtype implies it."""
+        if "bfloat16" in (self.compute_dtype, self.mlp_dtype):
+            return torch.bfloat16
+        return None
 
     @property
     def in_dim_t(self) -> int:
@@ -97,7 +111,8 @@ class FieldSpec:
 
     @property
     def in_dim_amb(self) -> int:
-        return self.amb_dim
+        return (encodings.freq_output_dim(self.amb_dim, 4)
+                if self.encode_topo else self.amb_dim)
 
     @property
     def in_dim_xyz(self) -> int:
@@ -204,8 +219,7 @@ class Field(nn.Module):
     def deform_code_at(self, t):
         return codes.sample_multicode(list(self.deform_code), t)
 
-    def warp(self, x, t, max_level=None):
-        """(deform, topo) of observation-space points at times t."""
+    def _deform_inputs(self, x, t, max_level):
         s = self.spec
         x_enc = (encodings.freq_encode(x, s.multires_deform, max_level)
                  if s.encode_deform else x)
@@ -213,8 +227,24 @@ class Field(nn.Module):
         if s.use_t:
             feats.append(encodings.freq_encode(t, s.multires_t, max_level))
         feats.append(self.deform_code_at(t))
-        h = torch.cat(feats, dim=-1)
-        return self.deform_net(h), self.topo_net(h)
+        return torch.cat(feats, dim=-1)
+
+    def _topo(self, h, max_level):
+        topo = self.topo_net(h, self.spec.mdt)
+        if self.spec.encode_topo:
+            topo = encodings.freq_encode(topo, 4, max_level)
+        return topo
+
+    def warp(self, x, t, max_level=None):
+        """(deform, topo) of observation-space points at times t; topo is
+        frequency-encoded under encode_topo (models/model.py:412-437)."""
+        h = self._deform_inputs(x, t, max_level)
+        return self.deform_net(h, self.spec.mdt), self._topo(h, max_level)
+
+    def get_topo(self, x, t, max_level=None):
+        """The ambient (topology) coordinates alone (models/model.py:
+        252-271)."""
+        return self._topo(self._deform_inputs(x, t, max_level), max_level)
 
     # ---- canonical field ----
 
@@ -229,14 +259,16 @@ class Field(nn.Module):
             gspec = dataclasses.replace(s.grid, level_dim=2 * s.grid.level_dim)
             out = hashgrid.encode(x, emb, gspec, bound=s.bound,
                                   max_level=max_level,
-                                  active_levels=s.active_levels)
+                                  active_levels=s.active_levels,
+                                  compute_dtype=s.cdt)
             L, C = s.grid.num_levels, s.grid.level_dim
             o = out.reshape(x.shape[:-1] + (L, 2 * C))
             return (o[..., :C].reshape(x.shape[:-1] + (L * C,)),
                     o[..., C:].reshape(x.shape[:-1] + (L * C,)))
         enc = hashgrid.encode(x, self.sdf_grid, s.grid, bound=s.bound,
                               max_level=max_level,
-                              active_levels=s.active_levels)
+                              active_levels=s.active_levels,
+                              compute_dtype=s.cdt)
         return enc, None
 
     def sdf_head(self, x, enc, topo, max_level):
@@ -245,7 +277,7 @@ class Field(nn.Module):
             topo = x.new_zeros(x.shape[:-1] + (s.in_dim_amb,))
         xin = (encodings.freq_encode(x, s.multires_xyz, max_level)
                if s.use_joint else x)
-        h = self.sdf_net(torch.cat([xin, enc, topo], dim=-1))
+        h = self.sdf_net(torch.cat([xin, enc, topo], dim=-1), s.mdt)
         return h[..., 0], h[..., 1:]
 
     def sdf_geo(self, x, topo, max_level=None, with_color: bool = False):
@@ -260,7 +292,7 @@ class Field(nn.Module):
         if s.use_app:
             feat = torch.cat([feat, x.new_zeros(x.shape[:-1]
                                                 + (s.deform_dim,))], -1)
-        return torch.sigmoid(self.color_net(feat))
+        return torch.sigmoid(self.color_net(feat, s.mdt))
 
     def sigma_albedo(self, x, topo=None, return_color: bool = True,
                      max_level=None):
@@ -293,15 +325,38 @@ class Field(nn.Module):
                max_level=None):
         """(unit, raw) canonical-space normals; with t the points are warped
         first and topo is held fixed in the spatial gradient
-        (models/model.py:387-398, 516-521)."""
-        with torch.enable_grad():
-            if t is not None and not cano:
-                deform, topo = self.warp(x, t, max_level)
-                x = x + deform
-            if not x.requires_grad:
-                x = x.detach().requires_grad_(True)
-            sdf, _ = self.sdf_geo(x, topo, max_level)
-            n_raw = torch.autograd.grad(sdf.sum(), x, create_graph=True)[0]
+        (models/model.py:387-398, 516-521). Under normal_mode 'fd' the raw
+        normal is the central difference of the sdf over +-fd_eps along
+        each axis, the shifted points clipped to the bound."""
+        s = self.spec
+        if t is not None and not cano:
+            deform, topo = self.warp(x, t, max_level)
+            x = x + deform
+        if s.normal_mode == "fd":
+            raw = []
+            for d in range(3):
+                off = x.new_zeros((1, 3))
+                off[0, d] = s.fd_eps
+                sp, _ = self.sdf_geo(torch.clamp(x + off, -s.bound, s.bound),
+                                     topo, max_level)
+                sn, _ = self.sdf_geo(torch.clamp(x - off, -s.bound, s.bound),
+                                     topo, max_level)
+                raw.append(0.5 * (sp - sn) / s.fd_eps)
+            n_raw = torch.stack(raw, -1)
+        else:
+            with torch.enable_grad():
+                if not x.requires_grad:
+                    x = x.detach().requires_grad_(True)
+                elif topo is not None and t is None:
+                    # the caller's topo may be a function of x (get_topo at
+                    # the same points): a copy of x that topo does not
+                    # depend on holds topo fixed in the spatial gradient,
+                    # as the JAX package's closure over topo does, and
+                    # keeps the gradient's path back through x
+                    x = x.clone()
+                sdf, _ = self.sdf_geo(x, topo, max_level)
+                n_raw = torch.autograd.grad(sdf.sum(), x,
+                                            create_graph=True)[0]
         return torch.nan_to_num(safe_normalize(n_raw)), n_raw
 
     # ---- background (models/model.py:400-410) ----
@@ -310,40 +365,20 @@ class Field(nn.Module):
         s = self.spec
         h = encodings.freq_encode(d, s.multires_bg)
         h_t = encodings.freq_encode(t, s.multires_bg_t, max_level)
-        return torch.sigmoid(self.bg_net(torch.cat([h, h_t], -1)))
+        return torch.sigmoid(self.bg_net(torch.cat([h, h_t], -1), s.mdt))
 
     # ---- full forward (models/model.py:483-533) ----
 
-    def forward(self, x, t, light_d=None, ratio=1.0,
-                shading_id: int = SHADING_ALBEDO, cano: bool = False,
-                compute_normals: bool = True, max_level=None,
-                extra_normal_x=None):
-        """(sdf, sigma, color, normal, deform, normal_raw[, normal_extra]).
-        shading_id is a host int, or a 0-d device tensor (and ratio then
-        may be one too).
-
-        extra_normal_x (E, 3): further canonical sites (topo zero) whose
-        normals ride the same encode and gradient closure as the samples;
-        their unit normals come back as a seventh output."""
+    def _analytic(self, x_cano, topo, max_level, extra_x):
+        """(sdf, sigma, albedo, unit normal, raw normal, extra sites' unit
+        normals or None) from one encode: the normals are the gradient of
+        the sdf through the closure that also gives the color features."""
         s = self.spec
-        if cano:
-            x_cano, deform, topo = x, None, None
-        else:
-            deform, topo = self.warp(x, t)
-            x_cano = x + deform
-
-        if not compute_normals:
-            sdf, sigma, alb = self.sigma_albedo(x_cano, topo,
-                                                max_level=max_level)
-            if extra_normal_x is not None:
-                return sdf, sigma, alb, None, deform, None, None
-            return sdf, sigma, alb, None, deform, None
-
         B = x_cano.shape[0]
-        E = 0 if extra_normal_x is None else extra_normal_x.shape[0]
+        E = 0 if extra_x is None else extra_x.shape[0]
         with torch.enable_grad():
             if E:
-                x_all = torch.cat([x_cano, extra_normal_x], 0)
+                x_all = torch.cat([x_cano, extra_x], 0)
                 zeros = x_cano.new_zeros((E, s.in_dim_amb))
                 topo_all = torch.cat(
                     [topo if topo is not None
@@ -364,6 +399,45 @@ class Field(nn.Module):
         sigma = density.laplace_density(sdf, self.beta)
         alb = self._color(x_cano, enc_col, geo_feat, max_level)
         n = torch.nan_to_num(safe_normalize(n_raw))
+        return sdf, sigma, alb, n, n_raw, n_extra
+
+    def forward(self, x, t, light_d=None, ratio=1.0,
+                shading_id: int = SHADING_ALBEDO, cano: bool = False,
+                compute_normals: bool = True, max_level=None,
+                extra_normal_x=None):
+        """(sdf, sigma, color, normal, deform, normal_raw[, normal_extra]).
+        shading_id is a host int, or a 0-d device tensor (and ratio then
+        may be one too).
+
+        extra_normal_x (E, 3): further canonical sites (topo zero) whose
+        normals ride the same encode and gradient closure as the samples;
+        their unit normals come back as a seventh output. Only the
+        analytic normals take them."""
+        s = self.spec
+        if cano:
+            x_cano, deform, topo = x, None, None
+        else:
+            deform, topo = self.warp(x, t)
+            x_cano = x + deform
+
+        if not compute_normals:
+            sdf, sigma, alb = self.sigma_albedo(x_cano, topo,
+                                                max_level=max_level)
+            if extra_normal_x is not None:
+                return sdf, sigma, alb, None, deform, None, None
+            return sdf, sigma, alb, None, deform, None
+        if s.normal_mode == "fd":
+            if extra_normal_x is not None:
+                raise ValueError("extra_normal_x rides the analytic normals' "
+                                 "closure; normal_mode 'fd' has none")
+            sdf, sigma, alb = self.sigma_albedo(x_cano, topo,
+                                                max_level=max_level)
+            n, n_raw = self.normal(x_cano, topo=topo, cano=True,
+                                   max_level=max_level)
+            n_extra = None
+        else:
+            sdf, sigma, alb, n, n_raw, n_extra = self._analytic(
+                x_cano, topo, max_level, extra_normal_x)
 
         if isinstance(shading_id, torch.Tensor):
             # drawn on the device (the virtual step): every shading, then

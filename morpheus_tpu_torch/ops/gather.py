@@ -12,9 +12,13 @@ cannot build or launch the kernel raises.
 
 Contract (both versions):
 
-    level_gather(idx_local (L, Np) int32, emb (T, C) f32, level_starts
+    level_gather(idx_local (L, Np) int32, emb (T, C) f32|bf16, level_starts
                  (L ints), n_split 1|3) -> (L*Np, C) f32
     out[l*Np + i, c] = split_sum(emb[level_starts[l] + idx_local[l, i], c])
+
+A bf16 table (the bfloat16 mixed-precision policy casts the table before
+the gather) is read as it is: each split of a bf16 value is the value, so
+n_split does not change a result and the kernel widens the bf16 row.
 
 Level l's rows run from level_starts[l] to the next level's start (the
 table's end for the last level). Unlike the TPU kernel, which reads tables
@@ -37,8 +41,8 @@ MAX_LEVELS = 64
 def _check(idx_local, emb, level_starts, n_split):
     if idx_local.dim() != 2 or idx_local.dtype != torch.int32:
         raise ValueError("idx_local must be (L, Np) int32")
-    if emb.dim() != 2 or emb.dtype != torch.float32:
-        raise ValueError(f"emb must be a (T, C) float32 table, got "
+    if emb.dim() != 2 or emb.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"emb must be a (T, C) float32 or bfloat16 table, got "
                          f"{tuple(emb.shape)} {emb.dtype}")
     L = idx_local.shape[0]
     if len(level_starts) != L or not 1 <= L <= MAX_LEVELS:
@@ -114,7 +118,8 @@ def level_gather(idx_local: torch.Tensor, emb: torch.Tensor, level_starts,
     if out.numel() == 0:                 # nothing to gather: no launch
         return out
     lib = kernels.load("level_gather")
-    fn = lib.level_gather_s1 if n_split == 1 else lib.level_gather_s3
+    fn = (lib.level_gather_bf16 if emb.dtype == torch.bfloat16
+          else lib.level_gather_s1 if n_split == 1 else lib.level_gather_s3)
     starts = (ctypes.c_int64 * L)(*[int(s) for s in level_starts])
     stream = torch.cuda.current_stream(emb.device).cuda_stream
     with torch.cuda.device(emb.device):

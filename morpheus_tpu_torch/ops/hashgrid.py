@@ -1,5 +1,7 @@
 """Multi-resolution hash grid encoder (port of morpheus_tpu/ops/hashgrid.py,
-every ``vjp_mode``; the packed dense prefix under ``hist_rows``).
+every ``vjp_mode``; the packed dense prefix under ``hist_rows``; hashed or
+tiled grids, both ``align_corners`` modes, linear, smoothstep and nearest
+interpolation, and the bfloat16 table of the mixed-precision policy).
 
 The forward gathers table rows and its backward accumulates the row
 cotangents into the table, by the route that ``vjp_mode`` names (ROUTES):
@@ -39,6 +41,7 @@ _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
 _U32 = 0xFFFFFFFF
 VJP_MODES = ("hist_rows", "mxu_rows", "sort_pallas_rows", "sort_pallas",
              "sort", "level_scatter", "scatter")
+INTERPOLATIONS = ("linear", "smoothstep", "nearest")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +53,11 @@ class HashGridSpec:
     log2_hashmap_size: int = 15
     per_level_scale: float = 2.0
     desired_resolution: int | None = None
-    # 'linear' (trilinear), or 'nearest' for the occupancy queries
+    gridtype: str = "hash"          # 'hash' | 'tiled' (no hashing: wraps)
+    align_corners: bool = False     # lattice corners on the cube's corners
+    # 'linear' (trilinear), 'smoothstep' (trilinear of smoothstepped
+    # fractions, gridencoder.cu:143-159) or 'nearest' (one rounded corner,
+    # the occupancy queries)
     interpolation: str = "linear"
     vjp_mode: str = "hist_rows"     # embedding-cotangent route, VJP_MODES
     grad_payload: str = "float32"   # 'float32' | 'bfloat16' cotangents
@@ -58,10 +65,12 @@ class HashGridSpec:
     def __post_init__(self):
         if self.vjp_mode not in VJP_MODES:
             raise ValueError(f"vjp_mode {self.vjp_mode!r} not in {VJP_MODES}")
-        if self.interpolation not in ("linear", "nearest"):
-            raise NotImplementedError(
-                f"interpolation {self.interpolation!r}: the port implements "
-                "'linear' and 'nearest' only (ROADMAP.md queue A, item A14)")
+        if self.interpolation not in INTERPOLATIONS:
+            raise ValueError(f"interpolation {self.interpolation!r} not in "
+                             f"{INTERPOLATIONS}")
+        if self.gridtype not in ("hash", "tiled"):
+            raise ValueError(f"gridtype {self.gridtype!r} not in ('hash', "
+                             "'tiled')")
         if self.desired_resolution is not None:
             s = np.exp2(np.log2(self.desired_resolution / self.base_resolution)
                         / (self.num_levels - 1))
@@ -105,12 +114,14 @@ def init_embeddings(generator: torch.Generator, spec: HashGridSpec,
 
 def _index_consts(spec: HashGridSpec, resolution: int, hashmap_size: int):
     """Static corner-index constants of one level: each axis's dense stride
-    (0 once the stride has passed the table) and whether the level hashes."""
+    (0 once the stride has passed the table) and whether the level hashes
+    (a hash grid's level whose lattice overflows the table; a tiled grid
+    never hashes and wraps instead)."""
     coef, stride = [], 1
     for _ in range(spec.input_dim):
         coef.append(stride if stride <= hashmap_size else 0)
         stride *= resolution
-    return coef, stride > hashmap_size
+    return coef, spec.gridtype == "hash" and stride > hashmap_size
 
 
 def _corner_rows(pos_grid: torch.Tensor, coef: torch.Tensor, hashed,
@@ -208,24 +219,34 @@ ROUTES = {
 
 
 class GatherRows(torch.autograd.Function):
-    """The route's gather of table rows; backward: AccumulateRows."""
+    """The route's gather of table rows; backward: AccumulateRows.
+    table_dtype (None or torch.bfloat16) casts the table inside the gather:
+    the backward then hands the accumulated f32 cotangent to the f32 table
+    as it is, where a cast in front of the gather would have autograd round
+    it to the cast's type."""
 
     @staticmethod
-    def forward(ctx, emb, rows: _Rows, mode: str, payload_dtype):
+    def forward(ctx, emb, rows: _Rows, mode: str, payload_dtype,
+                table_dtype=None):
         ctx.rows, ctx.mode, ctx.payload_dtype = rows, mode, payload_dtype
+        if table_dtype is not None:
+            emb = emb.to(table_dtype)
         return ROUTES[mode][0](emb, rows, payload_dtype)
 
     @staticmethod
     def backward(ctx, ct):
         return (AccumulateRows.apply(ct, ctx.rows, ctx.mode, ctx.payload_dtype),
-                None, None, None)
+                None, None, None, None)
 
 
 class AccumulateRows(torch.autograd.Function):
     """The route's accumulation of row cotangents into the (n_rows, C)
     table; backward: GatherRows again. The payload is rounded to
     `payload_dtype` here only; the transpose gather reads the f32 cotangent
-    table (through mxu_rows' bf16 split, as in the JAX package)."""
+    table (through mxu_rows' bf16 split, as in the JAX package). The f32
+    sums come back in the cotangent's type: a bf16 cotangent (from a bf16
+    table) gives a bf16 table cotangent, as the JAX package's
+    acc.astype(ct.dtype) does (hashgrid.py:227-228)."""
 
     @staticmethod
     def forward(ctx, ct, rows: _Rows, mode: str, payload_dtype):
@@ -240,12 +261,16 @@ class AccumulateRows(torch.autograd.Function):
 
 def take_rows(emb: torch.Tensor, idx_local: torch.Tensor,
               starts: Sequence[int], vjp_mode: str = "hist_rows",
-              payload_dtype=None) -> torch.Tensor:
+              payload_dtype=None, table_dtype=None) -> torch.Tensor:
     """Rows emb[starts[l] + idx_local[l, i]] in level-major order, (L*Np, C),
-    whose embedding cotangent accumulates through the vjp_mode's route."""
+    whose embedding cotangent accumulates through the vjp_mode's route;
+    table_dtype casts the table inside the gather (GatherRows)."""
     rows = _Rows(idx_local, starts, emb.shape[0])
     if vjp_mode in ROUTES:
-        return GatherRows.apply(emb, rows, vjp_mode, payload_dtype)
+        return GatherRows.apply(emb, rows, vjp_mode, payload_dtype,
+                                table_dtype)
+    if table_dtype is not None:
+        emb = emb.to(table_dtype)
     return emb.index_select(0, rows.rows)
 
 
@@ -306,18 +331,79 @@ def _packed_rows(spec: HashGridSpec, k_pack: int, device) -> torch.Tensor:
     return torch.as_tensor(np.concatenate(rows).reshape(-1), device=device)
 
 
-def _lattice(x: torch.Tensor, lv: _Levels):
-    """x (P, D) in [0, 1] -> (pos, grid0), each (levels, P, D)."""
+@functools.lru_cache(maxsize=16)
+def _packed_sources(spec: HashGridSpec, k_pack: int, C: int,
+                    device) -> torch.Tensor:
+    """(offsets[k_pack], 2^D, C): for each table row of the packed levels,
+    each corner c and each channel, the flat index into the packed table
+    (rows, 2^D*C) of its copy for c (the inverse of _packed_rows)."""
+    offs, D = spec.offsets, spec.input_dim
+    src = []
+    for level in range(k_pack):
+        res, n = spec.resolutions[level], offs[level + 1] - offs[level]
+        j = np.arange(n)[:, None, None]
+        c = np.arange(1 << D)[None, :, None]
+        off = np.array([sum(((k >> d) & 1) * res ** d for d in range(D))
+                        for k in range(1 << D)])[None, :, None]
+        src.append(((offs[level] + (j - off) % n) * (1 << D) + c) * C
+                   + np.arange(C)[None, None])
+    return torch.as_tensor(np.concatenate(src), device=device)
+
+
+class PackRows(torch.autograd.Function):
+    """The packed dense-prefix table: 2^D shifted copies of each packed
+    level's rows side by side (_packed_rows), (rows, 2^D*C). Backward: each
+    table row's 2^D copies' cotangents summed in the cotangent's type from
+    the last corner to the first, the order in which the JAX package's
+    transpose of its shifted copies adds them, so a bf16 cotangent is
+    rounded after each add as there. The copies are read by an element
+    gather: in the full-width step's trace on an H100, index_select of
+    the same 16-byte rows took ~0.26 ms a call, and the element gather
+    left the step's device time as it was."""
+
+    @staticmethod
+    def forward(ctx, emb, spec: HashGridSpec, k_pack: int):
+        ctx.spec, ctx.k_pack, ctx.n_rows = spec, k_pack, emb.shape[0]
+        n_c = 1 << spec.input_dim
+        return emb.index_select(0, _packed_rows(spec, k_pack, emb.device)
+                                ).reshape(-1, n_c * emb.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        n_c = 1 << ctx.spec.input_dim
+        C = g.shape[1] // n_c
+        src = _packed_sources(ctx.spec, ctx.k_pack, C, g.device)  # (R,2^D,C)
+        terms = torch.gather(g.reshape(-1), 0, src.reshape(-1)).reshape(
+            src.shape)
+        acc = terms[:, n_c - 1]
+        for c in range(n_c - 2, -1, -1):
+            acc = acc + terms[:, c]
+        pad = acc.new_zeros((ctx.n_rows - acc.shape[0], C))
+        return torch.cat([acc, pad]), None, None
+
+
+def _lattice(x: torch.Tensor, lv: _Levels, align_corners: bool = False):
+    """x (P, D) in [0, 1] -> (pos, grid0), each (levels, P, D). Cell
+    centres on the lattice (pos = x*res - 0.5, clipped to [0, res-1]), or
+    with align_corners the lattice's ends on the cube's (pos = x*(res-1),
+    grid0 clipped to [0, res-2]) (JAX hashgrid.py:541-547)."""
+    if align_corners:
+        pos = x[None] * (lv.res - 1.0)
+        return pos, torch.clamp(torch.clamp(torch.floor(pos), min=0.0),
+                                max=lv.res - 2.0)
     # clamp, not minimum: a point on the upper bound keeps its gradient
     pos = torch.clamp(torch.clamp(x[None] * lv.res - 0.5, min=0.0),
                       max=lv.res - 1.0)
     return pos, torch.floor(pos)
 
 
-def _corner_weights(pos, grid0, lv: _Levels):
+def _corner_weights(pos, grid0, lv: _Levels, smoothstep: bool = False):
     """Trilinear weight of each corner: (levels, corners, P), the product
-    over axes taken in axis order."""
+    over axes taken in axis order; smoothstep first maps each fraction f to
+    f*f*(3 - 2f)."""
     f = (pos - grid0)[:, None]                           # (n, 1, P, D)
+    if smoothstep:
+        f = f * f * (3.0 - 2.0 * f)
     sel = torch.where(lv.upper, f, 1.0 - f)              # (n, corners, P, D)
     w = sel[..., 0]
     for d in range(1, sel.shape[-1]):
@@ -336,13 +422,21 @@ def active_count(max_level, num_levels: int) -> int | None:
 
 def encode(inputs: torch.Tensor, embeddings: torch.Tensor, spec: HashGridSpec,
            bound: float = 1.0, max_level=None,
-           active_levels: int | None = None) -> torch.Tensor:
+           active_levels: int | None = None,
+           compute_dtype=None) -> torch.Tensor:
     """Positions in [-bound, bound]^D -> (..., L*C) features.
 
     max_level (host float) zero-fills levels >= ceil(max_level*L);
     active_levels (static int) skips the gather of the levels at or above it
     (exact when no smaller than the max_level count: they are zero either
-    way). Out-of-range points encode to zeros."""
+    way). Out-of-range points encode to zeros.
+
+    compute_dtype torch.bfloat16 gathers from the table cast to bf16 (the
+    mixed-precision policy, JAX hashgrid.py:499-506); positions, weights
+    and the features stay f32. The JAX package casts before the gather, so
+    under the row-gather routes the table cotangent is rounded to bf16
+    after its f32 accumulation; under mxu_rows its gather returns f32 and
+    the cotangent stays f32, which the cast inside GatherRows keeps."""
     x01 = (inputs + bound) / (2.0 * bound)
     prefix = x01.shape[:-1]
     D = spec.input_dim
@@ -354,6 +448,13 @@ def encode(inputs: torch.Tensor, embeddings: torch.Tensor, spec: HashGridSpec,
     # hashgrid.py:81-118)
     pd = (torch.bfloat16 if spec.grad_payload == "bfloat16"
           and spec.vjp_mode != "sort_pallas" else None)
+    table_dtype = None
+    if compute_dtype is not None and compute_dtype != embeddings.dtype:
+        if spec.vjp_mode == "mxu_rows":
+            table_dtype = compute_dtype
+        else:
+            embeddings = embeddings.to(compute_dtype)
+    smooth = spec.interpolation == "smoothstep"
 
     in_range = ((x >= 0.0) & (x <= 1.0)).all(-1, keepdim=True)
     offsets, resolutions = spec.offsets, spec.resolutions
@@ -377,33 +478,32 @@ def encode(inputs: torch.Tensor, embeddings: torch.Tensor, spec: HashGridSpec,
         # one (2^D*C)-wide row per site and level from a table of 2^D
         # shifted copies of each level (see _packed_rows)
         lv = _levels(spec, 0, k_pack, n_corners, dev)
-        pos, grid0 = _lattice(x, lv)
+        pos, grid0 = _lattice(x, lv, spec.align_corners)
         base = (grid0.to(torch.int64) * lv.strides).sum(-1)      # (k, P)
-        wp = _corner_weights(pos, grid0, lv)                     # (k, 2^D, P)
-        emb_packed = embeddings.index_select(
-            0, _packed_rows(spec, k_pack, dev)).reshape(-1, n_corners * C)
+        wp = _corner_weights(pos, grid0, lv, smooth)             # (k, 2^D, P)
+        emb_packed = PackRows.apply(embeddings, spec, k_pack)
         featsp = take_rows(emb_packed, base, offsets[:k_pack], "hist_rows",
                            pd)
-        featsp = featsp.reshape(k_pack, P, n_corners, C)
+        featsp = featsp.reshape(k_pack, P, n_corners, C).to(wp.dtype)
         outs.append(torch.einsum("kpnc,knp->kpc", featsp, wp))   # (k, P, C)
 
     L_u = L - k_pack
     if L_u:
         lv = _levels(spec, k_pack, L, n_corners, dev)
-        pos, grid0 = _lattice(x, lv)
+        pos, grid0 = _lattice(x, lv, spec.align_corners)
         if spec.interpolation == "nearest":
             cg = torch.clamp(torch.clamp(torch.round(pos), min=0.0),
                              max=lv.res - 1.0).to(torch.int64)[:, None]
             w = None
         else:
-            w = _corner_weights(pos, grid0, lv)                  # (Lu, n, P)
+            w = _corner_weights(pos, grid0, lv, smooth)          # (Lu, n, P)
             cg = torch.minimum(grid0.to(torch.int64)[:, None] + lv.bits,
                                lv.res_max)                       # (Lu, n, P, D)
         local = _corner_rows(cg, lv.coef, lv.hashed, lv.size)
         feats = take_rows(embeddings, local.reshape(L_u, -1),
-                          offsets[k_pack:L], spec.vjp_mode, pd)
+                          offsets[k_pack:L], spec.vjp_mode, pd, table_dtype)
         feats = feats.reshape(L_u, n_corners, P, C)
-        outs.append(feats[:, 0] if w is None
+        outs.append(feats[:, 0].to(x.dtype) if w is None
                     else (w[..., None] * feats).sum(1))          # (Lu, P, C)
     out_l = outs[0] if len(outs) == 1 else torch.cat(outs, 0)   # (L, P, C)
 

@@ -1,11 +1,41 @@
-"""Plain ReLU MLP with the SAL/IGR geometric init
-(port of morpheus_tpu/ops/mlp.py; float32 only)."""
+"""Plain ReLU MLP with the SAL/IGR geometric init and the bfloat16
+mixed-precision policy (port of morpheus_tpu/ops/mlp.py: init_mlp,
+apply_mlp)."""
 from __future__ import annotations
 
 import math
 
 import torch
 from torch import nn
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of two bf16 matrices, summed and returned in float32: a bf16
+    GEMM with an f32 output on the card; on the CPU the f32 product of the
+    widened operands, which is the same number (a product of two bf16
+    values is exact in f32)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _BF16Linear(torch.autograd.Function):
+    """x @ w.T + b with x and w in bf16, the product in f32 (the JAX
+    package's jnp.dot(..., preferred_element_type=f32)) and the f32 bias
+    added in f32. The gradients of x and w are f32 products of the f32
+    cotangent with the widened other operand; autograd rounds them to bf16,
+    the operands' type, as the JAX transpose rounds them to its operands'
+    type."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w.t()) + b
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return g @ w.float(), g.t() @ x.float(), g.sum(0)
 
 
 class MLP(nn.Module):
@@ -49,10 +79,25 @@ class MLP(nn.Module):
                     lin.bias.zero_()
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        """dtype None runs float32; torch.bfloat16 runs the JAX package's
+        mixed policy (ops/mlp.py:54-73): inputs and weights in bf16, each
+        product summed in f32 with the f32 bias added, each hidden ReLU's
+        output cast back to bf16, the result in x's type."""
         n = len(self.layers)
+        out_dtype = x.dtype
+        if dtype is not None:
+            x = x.to(dtype)
         for l, lin in enumerate(self.layers):
-            x = lin(x)
+            if dtype is None:
+                x = lin(x)
+            else:
+                lead = x.shape[:-1]
+                x = _BF16Linear.apply(x.reshape(-1, x.shape[-1]),
+                                      lin.weight.to(dtype), lin.bias)
+                x = x.reshape(*lead, x.shape[-1])
             if l != n - 1:
                 x = torch.relu(x)
-        return x
+                if dtype is not None:
+                    x = x.to(dtype)
+        return x.to(out_dtype)

@@ -1,5 +1,6 @@
-"""Volume-rendering integration on a flat ray-sorted sample stream
-(port of morpheus_tpu/ops/volrender.py, the flat_* functions).
+"""Volume-rendering integration on a flat ray-sorted sample stream, and on
+a dense (N, K) grid of samples (port of morpheus_tpu/ops/volrender.py: the
+flat_* functions, render_weights and accumulate).
 
 Per-ray prefix sums are taken exactly per ray, never as one global f32 prefix
 over the whole stream: each ray owns at most K (max_samples) consecutive
@@ -64,3 +65,25 @@ def flat_accumulate(weights, values, seg: Segments):
     """Per-ray sum of w_i v_i: (N, C), or (N, 1) when values is None."""
     x = weights[:, None] if values is None else weights[:, None] * values
     return flat_segment_sum(x, seg)
+
+
+def render_weights(t_starts, t_ends, sigmas, mask):
+    """The flat_render_weights arithmetic on a dense (N, K) grid: invalid
+    samples carry zero optical depth. Returns (weights, trans, alphas),
+    each (N, K)."""
+    dt = t_ends - t_starts
+    tau = torch.where(mask, sigmas * dt, 0.0)
+    tau_shift = torch.cat([torch.zeros_like(tau[..., :1]),
+                           torch.cumsum(tau, dim=-1)[..., :-1]], -1)
+    trans = torch.exp(-tau_shift)
+    alphas = -torch.expm1(-tau)
+    weights = torch.where(mask, alphas * trans, 0.0)
+    return weights, trans, alphas
+
+
+def accumulate(weights, values=None):
+    """Sum of w_i v_i along the sample axis (..., K) -> (..., C), or of the
+    weights alone (..., 1) when values is None."""
+    if values is None:
+        return weights.sum(-1, keepdim=True)
+    return (weights[..., None] * values).sum(-2)

@@ -1,18 +1,24 @@
 """Volume renderer with its inline regularizers: the real- and virtual-view
-training paths and the eval renders (port of morpheus_tpu/renderer.py: render_rays
-with merge_smooth and band_reuse, its cano/real_view flags and background,
-_ortho_normal_dir, _band_reuse_normal_smoothness).
+training paths and the eval renders (port of morpheus_tpu/renderer.py:
+render_rays with its cano/real_view flags and background, the merged and
+separate perturbed-normal smoothness, the reference's dormant smoothness
+terms, _ortho_normal_dir, and both surface-band smoothness forms: the
+exact two-ladder _surface_band_normal_smoothness and the
+_band_reuse_normal_smoothness redesign).
 
 N rays are marched against the occupancy grid, compacted to a flat stream of
-B = sample_budget*N samples, evaluated by one field closure (samples plus the
+B = sample_budget*N samples (all N*K without a budget), evaluated by one
+field closure (samples plus, when they are known before it, the
 perturbed-smoothness sites) and composited per ray. Loss components come
 back in the output dict; the trainer weights and sums them.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
+import numpy as np
 import torch
 
 from .model.field import SHADING_ALBEDO, Field
@@ -44,23 +50,16 @@ class RenderConfig:
     smooth_budget: int = 0        # perturbed-normal sites per ray (0 = all)
     merge_smooth: bool = True
     band_budget: int = 0          # surface-band sites per ray (0 = all)
+    # reuse the render samples' normals as the band's first normal (True),
+    # or the reference's exact ladder of P = trunc*100+1 points a ray
+    # around the rendered depth, two normal evaluations (False)
     band_reuse: bool = True
-    normal_dir: bool = False
-    normal_smooth_3d_t: bool = False
-    deform_smooth: bool = False
-    deform_smooth_t: bool = False
-    topo_smooth_t: bool = False
-
-    def __post_init__(self):
-        for k in ("normal_dir", "normal_smooth_3d_t", "deform_smooth",
-                  "deform_smooth_t", "topo_smooth_t"):
-            if getattr(self, k):
-                raise NotImplementedError(
-                    f"{k}: dormant reference option, not ported (ROADMAP.md "
-                    "queue A, item A14)")
-        if not self.topo_none:
-            raise NotImplementedError(
-                "topo_none=False: not ported (ROADMAP.md queue A, item A14)")
+    # the reference's dormant options (morpheus.py:716-760)
+    normal_dir: bool = False          # perturb along ortho-normal dirs
+    normal_smooth_3d_t: bool = False  # normals under time-perturbed topo
+    deform_smooth: bool = False       # deform at the perturbed points
+    deform_smooth_t: bool = False     # deform at perturbed times
+    topo_smooth_t: bool = False       # topo at perturbed times
 
     @staticmethod
     def from_config(config: dict, num_frames: int, bound: float
@@ -148,10 +147,14 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
     light_flat = _take(light_d, ray_id)
     dirs_unit = safe_normalize(rays_d)
 
-    # the perturbed-smoothness sites are known before the field evaluation,
-    # so they ride the samples' encode and gradient closure
+    # the isotropic perturbed-smoothness sites with zero topo are known
+    # before the field evaluation, so they ride the samples' encode and
+    # gradient closure; normal_dir needs the normals first, topo'd sites
+    # their own topo, and fd normals have no closure to share
     merge_smooth = (rcfg.merge_smooth and train and rcfg.compute_normals
-                    and rcfg.normal_smooth_3d)
+                    and rcfg.normal_smooth_3d and not rcfg.normal_dir
+                    and rcfg.topo_none
+                    and field.spec.normal_mode == "analytic")
     s_sel = xp = n_p = None
     if merge_smooth:
         s_sel = _subset_sel(draws, "smooth_sel", valid,
@@ -187,21 +190,54 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
     if not train:
         return out
 
+    def masked_mean(x):
+        m = valid[:, None].expand(x.shape)
+        return torch.where(m, x, 0.0).sum() / (m.sum() + 1e-8)
+
     if rcfg.compute_normals and normals is not None:
         out["loss_orient"] = losses.orientation_loss_flat(
             weights.detach(), normals, _take(dirs_unit, ray_id), valid, N)
         if rcfg.normal_smooth_3d:
+            # canonical-space normals at perturbed sites (morpheus.py:
+            # 714-741), on a uniform subset of the valid samples under
+            # smooth_budget (an unbiased estimate of the same mean)
             if not merge_smooth:
                 s_sel = _subset_sel(draws, "smooth_sel", valid,
                                     rcfg.smooth_budget * N)
-                x_s = _take(x_flat, s_sel)
-                xp = x_s + draws.normal("perturb", tuple(x_s.shape)) \
-                    * rcfg.smoothness_std
-                n_p, _ = field.normal(xp, topo=None, cano=True,
+            x_s, t_s, n_s, v_s = (_take(a, s_sel) for a in (
+                x_flat, t_flat, normals, valid))
+            d_s = None if deform is None else _take(deform, s_sel)
+            if not merge_smooth:
+                if rcfg.normal_dir:
+                    xp = x_s + _ortho_normal_dir(draws.uniform(
+                        "perturb_phase", (x_s.shape[0], 1)), n_s) \
+                        * rcfg.smoothness_std
+                else:
+                    xp = x_s + draws.normal("perturb", tuple(x_s.shape)) \
+                        * rcfg.smoothness_std
+                topo_p = (None if rcfg.topo_none
+                          else field.get_topo(xp, t_s, max_level))
+                n_p, _ = field.normal(xp, topo=topo_p, cano=True,
                                       max_level=max_level)
-            n_s, v_s = _take(normals, s_sel), _take(valid, s_sel)
             out["loss_normal_perturb"] = losses.normal_perturb_loss(n_s, n_p,
                                                                     v_s)
+            if rcfg.normal_smooth_3d_t:
+                # normals under the topo of a perturbed time
+                # (morpheus.py:743-748)
+                t_jit = t_s + draws.uniform("t_perturb_3d", tuple(
+                    t_s.shape)) / rcfg.num_frames
+                n_t, _ = field.normal(x_s, topo=field.get_topo(
+                    x_s, t_jit, max_level), cano=True, max_level=max_level)
+                out["loss_normal_perturb_t"] = losses.normal_perturb_loss(
+                    n_s, n_t, v_s)
+            if rcfg.deform_smooth and not cano and d_s is not None:
+                # the deformation at the perturbed points (morpheus.py:
+                # 750-754)
+                deform_p, _ = field.warp(xp, t_s, max_level)
+                m_s = v_s[:, None].expand(d_s.shape)
+                out["loss_deform_perturb"] = (
+                    torch.where(m_s, torch.abs(d_s - deform_p), 0.0).sum()
+                    / (m_s.sum() + 1e-8))
         if normal_raw is not None:
             out["normal_raw_eik"] = losses.eikonal_loss(normal_raw, valid)
         if rcfg.normal_smooth_2d and not real_view:
@@ -210,6 +246,19 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
             out["normal_image"] = volrender.flat_accumulate(
                 weights, (normals + 1.0) / 2.0, seg)
 
+    if (rcfg.deform_smooth_t or rcfg.topo_smooth_t) and not cano \
+            and deform is not None:
+        # deformation and topo under a perturbed time (morpheus.py:756-760)
+        t_jit = t_flat + draws.uniform("t_perturb", tuple(
+            t_flat.shape)) / rcfg.num_frames
+        _, topo0 = field.warp(x_flat, t_flat, max_level)
+        deform_t, topo_t = field.warp(x_flat, t_jit, max_level)
+        if rcfg.deform_smooth_t:
+            out["loss_deform_perturb_t"] = masked_mean(
+                torch.abs(deform - deform_t))
+        if rcfg.topo_smooth_t:
+            out["loss_topo_perturb_t"] = masked_mean(torch.abs(topo0 - topo_t))
+
     if rcfg.code_reg and not cano:
         t0 = rays_t[:1]
         dt = 1.0 / rcfg.num_frames
@@ -217,14 +266,14 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
             field.deform_code_at(t0), field.deform_code_at(t0 - dt),
             field.deform_code_at(t0 + dt))
 
-    if rcfg.normal_smoothness and normals is not None:
-        if not (rcfg.band_reuse and rcfg.band_budget):
-            raise NotImplementedError(
-                "the surface-band ladder (band_reuse off or band_budget 0) "
-                "is not ported (ROADMAP.md queue A, item A14)")
-        out["normal_reg"] = _band_reuse_normal_smoothness(
-            field, draws, x_flat, t_flat, normals, valid, t_mid, depth,
-            ray_id, rcfg, max_level)
+    if rcfg.normal_smoothness:
+        if rcfg.band_reuse and rcfg.band_budget and normals is not None:
+            out["normal_reg"] = _band_reuse_normal_smoothness(
+                field, draws, x_flat, t_flat, normals, valid, t_mid, depth,
+                ray_id, rcfg, max_level)
+        else:
+            out["normal_reg"] = _surface_band_normal_smoothness(
+                field, draws, rays_o, rays_d, rays_t, depth, rcfg, max_level)
 
     if rays_depth is not None:
         fs_loss, sdf_loss = losses.sdf_losses_flat(
@@ -234,9 +283,7 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
         out["sdf_loss"] = sdf_loss
 
     if deform is not None:
-        m = valid[:, None].expand(deform.shape)
-        out["deform_abs"] = (torch.where(m, torch.abs(deform), 0.0).sum()
-                             / (m.sum() + 1e-8))
+        out["deform_abs"] = masked_mean(torch.abs(deform))
     return out
 
 
@@ -272,3 +319,43 @@ def _band_reuse_normal_smoothness(field: Field, draws, x_flat, t_flat,
                          max_level=max_level)
     sq = ((n1 - n2) ** 2).sum(-1) / 3.0
     return torch.where(m_b, sq, 0.0).sum() / (m_b.sum() + 1e-8)
+
+
+@functools.lru_cache(maxsize=8)
+def _ladder(trunc: float, P: int, device) -> torch.Tensor:
+    """P rungs evenly over [-trunc/2, trunc/2], made once per device (a
+    host-to-card copy waits for the card)."""
+    return torch.as_tensor(np.linspace(-0.5 * trunc, 0.5 * trunc, P)
+                           .astype(np.float32), device=device)
+
+
+def _surface_band_normal_smoothness(field: Field, draws, rays_o, rays_d,
+                                    rays_t, depth, rcfg: RenderConfig,
+                                    max_level):
+    """The reference's surface-band normal smoothness (morpheus.py:530-556,
+    JAX renderer.py:417-457): a ladder of P = trunc*100+1 points a ray,
+    spaced over [-trunc/2, trunc/2] around the detached rendered depth and
+    jittered by one draw of 0.01*U[0, 1) per rung; n1 is the normal of each
+    point, n2 that of the point moved smoothness_std along a random
+    direction orthogonal to n1. Points with |x| >= outside_radius are
+    masked out (the reference drops them); under band_budget a random
+    band_budget*N of the in-band points are evaluated (top-k of a random
+    score, exact where the JAX package's approx_max_k is exact on the
+    CPU)."""
+    P = int(rcfg.trunc * 100 + 1)
+    N = depth.shape[0]
+    ladder = _ladder(rcfg.trunc, P, depth.device) \
+        + 0.01 * draws.uniform("ladder_jitter", (P,))
+    pts = ((depth.detach()[None, :] + ladder[:, None])[..., None]
+           * rays_d[None] + rays_o[None]).reshape(-1, 3)         # (P*N, 3)
+    ts = rays_t[None].expand((P,) + tuple(rays_t.shape)).reshape(-1, 1)
+    in_band = torch.linalg.norm(pts, dim=-1) < rcfg.outside_radius
+    sel = _subset_sel(draws, "ladder_sel", in_band, rcfg.band_budget * N)
+    pts, ts, in_band = (_take(a, sel) for a in (pts, ts, in_band))
+    n1, _ = field.normal(pts, t=ts, max_level=max_level)
+    w = _ortho_normal_dir(draws.uniform("ladder_phase", (n1.shape[0], 1)),
+                          n1)
+    n2, _ = field.normal(pts + w * rcfg.smoothness_std, t=ts,
+                         max_level=max_level)
+    sq = ((n1 - n2) ** 2).sum(-1) / 3.0
+    return torch.where(in_band, sq, 0.0).sum() / (in_band.sum() + 1e-8)

@@ -1,4 +1,6 @@
-"""Loss terms of the real-view step (port of morpheus_tpu/train/losses.py)."""
+"""Loss terms of the training steps (port of morpheus_tpu/train/losses.py:
+the flat-stream losses the renderer uses, and the dense (N, K) sdf_losses
+and orientation_loss)."""
 from __future__ import annotations
 
 import torch
@@ -41,6 +43,42 @@ def sdf_losses_flat(t_mid, target_d, predicted_sdf, truncation, valid,
     sdf_loss = (per_ray_sum(torch.where(sdf_mask, sdf_l, 0.0))
                 / sum_of_samples).sum() / rays_w_depth
     return fs_loss, sdf_loss
+
+
+def sdf_losses(t_mid, target_d, predicted_sdf, truncation, sample_mask,
+               ray_mask=None):
+    """sdf_losses_flat on a dense (N, K) grid of samples (reference
+    utils.py:91-113). t_mid, predicted_sdf, sample_mask: (N, K); target_d,
+    ray_mask: (N, 1). Returns (fs_loss, sdf_loss)."""
+    depth_mask = target_d > 0.0
+    front_mask = t_mid < (target_d - truncation)
+    front_mask = front_mask | ((target_d < 0.0) & (t_mid < 3.5))
+    bound = torch.where(depth_mask, target_d - t_mid, 10.0)
+    sdf_mask = (torch.abs(bound) <= truncation) & depth_mask
+    if ray_mask is not None:
+        sdf_mask = sdf_mask & (ray_mask > 0.5)
+    front_mask = front_mask & sample_mask
+    sdf_mask = sdf_mask & sample_mask
+    sum_of_samples = front_mask.sum(-1) + sdf_mask.sum(-1) + 1e-8
+    rays_w_depth = torch.count_nonzero(target_d) + 1e-8
+    fs = torch.clamp(torch.maximum(torch.exp(-5.0 * predicted_sdf) - 1.0,
+                                   predicted_sdf - bound), min=0.0)
+    fs_loss = (torch.where(front_mask, fs, 0.0).sum(-1)
+               / sum_of_samples).sum() / rays_w_depth
+    sdf_l = torch.abs(predicted_sdf - bound)
+    sdf_loss = (torch.where(sdf_mask, sdf_l, 0.0).sum(-1)
+                / sum_of_samples).sum() / rays_w_depth
+    return fs_loss, sdf_loss
+
+
+def orientation_loss(weights, normals, dirs, mask):
+    """Normals facing away from the camera on a dense (N, K) grid
+    (morpheus.py:709-712): the mean over rays of each ray's sum; the
+    caller detaches the weights."""
+    n_dot_d = (normals * dirs).sum(-1)
+    term = torch.clamp(n_dot_d, min=0.0) ** 2 * torch.where(mask, weights,
+                                                            0.0)
+    return term.sum(-1).mean()
 
 
 def orientation_loss_flat(weights, normals, dirs, valid, num_rays):

@@ -1,7 +1,7 @@
-"""Per-group Adam with the reference's betas/eps, the GradScaler-style skip
-of non-finite updates, the virtual step's deform freeze, and the parameter
-EMA (port of morpheus_tpu/train/optim.py: FREEZE_GROUPS, adam_update,
-ema_update).
+"""Per-group Adam with the reference's betas/eps, Adan, the GradScaler-style
+skip of non-finite updates, the virtual step's deform freeze, and the
+parameter EMA (port of morpheus_tpu/train/optim.py: FREEZE_GROUPS,
+adam_update, adan_update, ema_update).
 
 The update runs on the device with no host synchronisation: the skip is a
 select between the new and the old state, as in the reference's compiled
@@ -30,40 +30,75 @@ def group_of(name: str) -> str:
     return name.split(".", 1)[0]
 
 
-class Adam:
-    """torch.optim.Adam-like semantics of the reference's adam_update:
-    p -= lr*mult * (m/bc1) / (sqrt(v/bc2) + eps), b1 0.9, b2 0.99, eps 1e-15.
-    An update whose gradients are not all finite leaves the parameters and
-    the moments (and the step count) as they were. Frozen groups take a
-    zero learning rate: their parameters stay, their moments and the step
-    count move (optim.py:62-82 of the JAX package)."""
+class _Optimizer:
+    """What Adam and Adan share: the per-parameter group multipliers, the
+    step count and the SLOTS (per-parameter state, checkpointed by name)
+    on the parameters' device; the GradScaler-style skip of an update
+    whose gradients are not all finite, which leaves the parameters, the
+    slots and the step count as they were; and the freeze, a zero learning
+    rate for the frozen groups, whose moments and the step count still
+    move (optim.py:62-82 of the JAX package). A subclass gives its SLOTS
+    and `_apply`, the arithmetic of one update."""
 
-    def __init__(self, named_params, b1: float = 0.9, b2: float = 0.99,
-                 eps: float = 1e-15):
+    name = ""
+    SLOTS: tuple = ()
+
+    def __init__(self, named_params):
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
         self.mult = [np.float32(GROUP_MULTIPLIERS.get(group_of(n), 1.0))
                      for n in self.names]
-        self.b1, self.b2, self.eps = b1, b2, eps
         dev = self.params[0].device
         self.step = torch.zeros((), dtype=torch.float32, device=dev)
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        for k in self.SLOTS:
+            setattr(self, k, [torch.zeros_like(p) for p in self.params])
+
+    def _apply(self, grads, t, rates):
+        """(new parameters, new slots in SLOTS order) of the update at step
+        t (a device scalar), each parameter at its own rate."""
+        raise NotImplementedError
 
     @torch.no_grad()
     def update(self, grads, lr, frozen=(), ok=None) -> torch.Tensor:
         """Apply one step with base learning rate `lr`, the groups in
         `frozen` at rate 0; returns the on-device flag of whether it was
         applied. `ok` (a device bool) also gates the step, as the
-        gradients' own finiteness does. The arithmetic is the reference's,
-        op for op, in multi-tensor (foreach) launches."""
+        gradients' own finiteness does."""
         # the GradScaler's fused check, with an unscale by exactly 1.0
         found = torch.zeros((), dtype=torch.float32, device=self.step.device)
         torch._amp_foreach_non_finite_check_and_unscale_(
             grads, found, torch.ones_like(found))
         ok = (found == 0.0) if ok is None else (found == 0.0) & ok
-        b1, b2 = self.b1, self.b2
         t = self.step + 1.0
+        rates = [np.float32(0.0) if group_of(n) in frozen
+                 else m * np.float32(lr)
+                 for n, m in zip(self.names, self.mult)]
+        new, slots = self._apply(grads, t, rates)
+        for dst, src in zip([self.params] + [getattr(self, k)
+                                             for k in self.SLOTS],
+                            [new] + list(slots)):
+            for d, s in zip(dst, src):
+                torch.where(ok, s, d, out=d)
+        torch.where(ok, t, self.step, out=self.step)
+        return ok
+
+
+class Adam(_Optimizer):
+    """torch.optim.Adam-like semantics of the reference's adam_update:
+    p -= lr*mult * (m/bc1) / (sqrt(v/bc2) + eps), b1 0.9, b2 0.99, eps 1e-15.
+    The arithmetic is the reference's, op for op, in multi-tensor (foreach)
+    launches."""
+
+    name = "adam"
+    SLOTS = ("mu", "nu")
+
+    def __init__(self, named_params, b1: float = 0.9, b2: float = 0.99,
+                 eps: float = 1e-15):
+        super().__init__(named_params)
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def _apply(self, grads, t, rates):
+        b1, b2 = self.b1, self.b2
         bc1 = 1.0 - torch.pow(b1, t)
         bc2 = 1.0 - torch.pow(b2, t)
         mu = torch._foreach_mul(self.mu, b1)
@@ -76,16 +111,76 @@ class Adam:
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         upd = torch._foreach_div(mu, bc1)
-        torch._foreach_mul_(upd, [
-            0.0 if group_of(n) in frozen else float(m * np.float32(lr))
-            for n, m in zip(self.names, self.mult)])
+        torch._foreach_mul_(upd, [float(r) for r in rates])
         torch._foreach_div_(upd, den)
+        return torch._foreach_sub(self.params, upd), (mu, nu)
+
+
+class Adan(_Optimizer):
+    """The reference's Adan (models/optimizer.py:23-257) as the JAX
+    package's adan_update (optim.py:84-150): the gradients clipped to a
+    global norm of max_grad_norm, three EMAs (m of the gradients, v of
+    their differences from the last step's, n of the squared Nesterov
+    gradient), no difference on the first step, bias corrections, and
+    decoupled weight decay as a (1 + lr*wd) divisor, so a frozen group
+    (rate 0) takes neither step nor decay. Each expression is in the JAX
+    package's order."""
+
+    name = "adan"
+    SLOTS = ("m", "v", "n", "prev_grad")
+
+    def __init__(self, named_params, b1: float = 0.98, b2: float = 0.92,
+                 b3: float = 0.99, eps: float = 1e-8,
+                 weight_decay: float = 2e-5, max_grad_norm: float = 5.0):
+        super().__init__(named_params)
+        self.b1, self.b2, self.b3, self.eps = b1, b2, b3, eps
+        self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
+
+    def _apply(self, grads, t, rates):
+        b1, b2, b3 = self.b1, self.b2, self.b3
+        gnorm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
+        clip = torch.clamp(self.max_grad_norm / (gnorm + self.eps), max=1.0)
+        g = torch._foreach_mul(grads, clip)
+        bc1 = 1.0 - torch.pow(b1, t)
+        bc2 = 1.0 - torch.pow(b2, t)
+        bc3 = 1.0 - torch.pow(b3, t)
+        diff = torch._foreach_sub(g, self.prev_grad)
+        torch._foreach_mul_(diff, (t > 1.0).float())    # 0 on the first step
+        m = torch._foreach_mul(self.m, b1)
+        torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
+        v = torch._foreach_mul(self.v, b2)
+        torch._foreach_add_(v, torch._foreach_mul(diff, 1 - b2))
+        u = torch._foreach_add(g, torch._foreach_mul(diff, b2))
+        n = torch._foreach_mul(self.n, b3)
+        uu = torch._foreach_mul(u, 1 - b3)
+        torch._foreach_mul_(uu, u)
+        torch._foreach_add_(n, uu)
+        den = torch._foreach_div(n, bc3)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        upd = torch._foreach_div(m, bc1)
+        bv = torch._foreach_mul(v, b2)
+        torch._foreach_div_(bv, bc2)
+        torch._foreach_add_(upd, bv)
+        torch._foreach_div_(upd, den)
+        wd = np.float32(self.weight_decay)
+        torch._foreach_mul_(upd, [float(r) for r in rates])
         new = torch._foreach_sub(self.params, upd)
-        for dst, src in ((self.params, new), (self.mu, mu), (self.nu, nu)):
-            for d, s in zip(dst, src):
-                torch.where(ok, s, d, out=d)
-        torch.where(ok, t, self.step, out=self.step)
-        return ok
+        torch._foreach_div_(new, [float(np.float32(1.0) + r * wd)
+                                  for r in rates])
+        return new, (m, v, n, g)
+
+
+OPTIMIZERS = {"adam": Adam, "adan": Adan}
+
+
+def make(name: str, named_params):
+    """The optimizer `name` ('adam' | 'adan', train.optim) over
+    named_params."""
+    if name not in OPTIMIZERS:
+        raise ValueError(f"optim {name!r} not in {tuple(OPTIMIZERS)}")
+    return OPTIMIZERS[name](named_params)
 
 
 @torch.no_grad()

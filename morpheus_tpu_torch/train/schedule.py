@@ -111,13 +111,11 @@ class Curriculum:
     @staticmethod
     def from_config(config: dict) -> "Curriculum":
         tr = config["train"]
-        if tr.get("optim", "adam") != "adam":
-            raise NotImplementedError(
-                f"optim {tr.get('optim')!r}: the port implements Adam only "
-                "(ROADMAP.md queue A, item A15)")
         d = config["data"]
+        # Adan runs at 5x the base lr (morpheus.py:149: get_params_all(5*lr))
+        lr = tr["lr"] * (5.0 if tr.get("optim") == "adan" else 1.0)
         return Curriculum(
-            lr=tr["lr"], n_epochs=tr["n_epochs"],
+            lr=lr, n_epochs=tr["n_epochs"],
             warm_up_end=tr["warm_up_end"], warm_up_steps=tr["warm_up_steps"],
             freeze_epoch=tr["freeze_epoch"],
             progressive_level=tr["progressive_level"],

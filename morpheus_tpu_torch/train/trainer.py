@@ -9,10 +9,11 @@ virtual step, _active_levels and the epoch loop).
 
 One real step: draw a ray batch, refresh the occupancy grid on its cadence,
 render with all regularizers, take the gradient of the weighted loss, add
-the virtual steps' pending gradients and apply Adam unless a gradient is
-non-finite. One virtual step (with guidance): draw a camera around a
+the virtual steps' pending gradients and apply the optimizer (Adam or Adan,
+train.optim) unless a gradient is non-finite. One virtual step (with guidance): draw a camera around a
 random frame, render the whole view, score it with Zero123's SDS against
-a keyframe, and either step Adam with the deformation groups frozen
+a keyframe, and either step the optimizer with the deformation groups
+frozen
 (while curriculum.freeze_deform) or add the gradients to pending_grads,
 which the next real step folds in. Neither step synchronises with the
 host; the epoch loop reads the loss once at its end.
@@ -137,7 +138,9 @@ class Trainer:
                                                       dataset.num_frames,
                                                       self.bound)
         # occupancy density queries read one rounded corner per level
-        # ('nearest', the default) or interpolate ('linear')
+        # ('nearest', the default) or interpolate as the field does
+        # ('linear': the field's own interpolation, as the JAX trainer's
+        # occ_spec keeps it)
         self.occ_interp = tpu.get("occ_query_interp", "nearest")
         self.data = dataset.device_data(self.device,
                                         scale=config["data"]["known_view_scale"])
@@ -166,7 +169,7 @@ class Trainer:
     def _reset_state(self):
         named = list(self.field.named_parameters())
         self.params = [p for _, p in named]
-        self.optim = optim.Adam(named)
+        self.optim = optim.make(self.config["train"]["optim"], named)
         # the EMA weights are the parameters of a second field, which the
         # test videos render
         self.ema_field = copy.deepcopy(self.field).requires_grad_(False)
@@ -202,9 +205,22 @@ class Trainer:
         if active_levels is not None and active_levels < spec.grid.num_levels:
             spec = dataclasses.replace(spec, active_levels=active_levels)
         self.step_field = self.field.with_spec(spec)
+        interp = (spec.grid.interpolation if self.occ_interp == "linear"
+                  else self.occ_interp)
         self.occ_field = self.field.with_spec(dataclasses.replace(
-            spec, grid=dataclasses.replace(spec.grid,
-                                           interpolation=self.occ_interp)))
+            spec, grid=dataclasses.replace(spec.grid, interpolation=interp)))
+
+    def set_spec(self, grid=None, **field):
+        """Replace spec-level options that leave every parameter's shape as
+        it is - the hash grid's (`grid`: vjp_mode, interpolation, gridtype,
+        align_corners) and the field's (normal_mode, ...) - in place, with
+        the step's and the occupancy queries' fields at this epoch's
+        levels."""
+        self.spec = dataclasses.replace(
+            self.spec, grid=dataclasses.replace(self.spec.grid, **(grid or {})),
+            **field)
+        self.field.spec = self.spec
+        self._set_levels(self._active_levels())
 
     # ---- occupancy ----
 
@@ -313,8 +329,13 @@ class Trainer:
         loss = beta_w * density_lib.laplace_beta(self.field.beta)
         if "loss_orient" in out:
             loss = loss + ori_w * out["loss_orient"]
-        if tr["normal_smooth_3d"] > 0 and "loss_normal_perturb" in out:
-            loss = loss + tr["normal_smooth_3d"] * out["loss_normal_perturb"]
+        for w, key in (("normal_smooth_3d", "loss_normal_perturb"),
+                       ("normal_smooth_3d_t", "loss_normal_perturb_t"),
+                       ("deform_smooth", "loss_deform_perturb"),
+                       ("deform_smooth_t", "loss_deform_perturb_t"),
+                       ("topo_smooth_t", "loss_topo_perturb_t")):
+            if tr[w] > 0 and key in out:
+                loss = loss + tr[w] * out[key]
         if tr["eik_weight"] > 0 and "normal_raw_eik" in out:
             loss = loss + tr["eik_weight"] * out["normal_raw_eik"]
         if tr["normal_smoothness"] > 0 and "normal_reg" in out:
@@ -551,7 +572,8 @@ class Trainer:
         """One SDS virtual step on a view of `sampler`; returns (loss on the
         device, the guidance panels' inputs or {}). The gradients are
         divided by virtual_freq and zeroed if any is non-finite; while the
-        deform freeze is on they step Adam at once with FREEZE_GROUPS at
+        deform freeze is on they step the optimizer at once with
+        FREEZE_GROUPS at
         rate 0 (and the carried gradients are cleared), after it they are
         added to the carried gradients (trainer.py:625-672 of the JAX
         package)."""
@@ -570,7 +592,7 @@ class Trainer:
             grads, found, torch.ones_like(found))
         ok = found == 0.0
         # the GradScaler-parity skip: a non-finite SDS gradient neither
-        # steps Adam nor enters the carry
+        # steps the optimizer nor enters the carry
         grads = [torch.where(ok, g, 0.0) for g in grads]
         if self.curr.freeze_deform(epoch):
             self.optim.update(grads, lr, frozen=optim.FREEZE_GROUPS, ok=ok)
@@ -626,7 +648,8 @@ class Trainer:
 
     def state_dict(self) -> dict:
         """Everything a resumed run needs to continue as if never stopped:
-        parameters, Adam's step and moments, the EMA, the occupancy grid,
+        parameters, the optimizer's name, step and per-parameter state (its
+        SLOTS), the EMA, the occupancy grid,
         the carried virtual-step gradients, the step, host-step and epoch
         counters and the state of the random draws."""
         def arrays(ts):
@@ -636,9 +659,10 @@ class Trainer:
                  if isinstance(self.draws, Draws) else None)
         return {
             "params": arrays(self.params),
-            "optim": {"name": "adam", "step": float(self.optim.step),
-                      "mu": arrays(self.optim.mu),
-                      "nu": arrays(self.optim.nu)},
+            "optim": {"name": self.optim.name,
+                      "step": float(self.optim.step),
+                      **{k: arrays(getattr(self.optim, k))
+                         for k in self.optim.SLOTS}},
             "ema": arrays(self.ema),
             "occ": {"occs": self.occ.occs.cpu().numpy(),
                     "binaries": self.occ.binaries.cpu().numpy()},
@@ -652,18 +676,18 @@ class Trainer:
     def load_state_dict(self, state: dict) -> None:
         """Restore a state_dict() (or convert.load_jax_ckpt's dict, which
         has no draws state) in place."""
-        if state["optim"]["name"] != "adam":
-            raise NotImplementedError(
-                f"optimizer {state['optim']['name']!r}: the port runs Adam "
-                "only (ROADMAP.md queue A, item A15)")
+        if state["optim"]["name"] != self.optim.name:
+            raise ValueError(
+                f"a checkpoint of optimizer {state['optim']['name']!r} into "
+                f"a trainer of {self.optim.name!r} (train.optim)")
 
         def load(dst, src):
             with torch.no_grad():
                 for n, t in zip(self.optim.names, dst):
                     t.copy_(torch.as_tensor(np.asarray(src[n])))
         load(self.params, state["params"])
-        load(self.optim.mu, state["optim"]["mu"])
-        load(self.optim.nu, state["optim"]["nu"])
+        for k in self.optim.SLOTS:
+            load(getattr(self.optim, k), state["optim"][k])
         load(self.ema, state["ema"])
         pending = state.get("pending_grads")
         if pending is None:

@@ -229,3 +229,147 @@ def test_split_busy_sums_kernels_between_markers(chip_smoke):
     assert part == {"render": 0.020 + 0.010, "vae_encoder": 0.020,
                     "unet": 0.010, "adam": 0.0, "other": 0.050}
     assert chip_smoke.split_busy(bracket + spins[1:] + work, [m]) is None
+
+
+# phase 11's captured steady steps on the CPU at the tiny config: the exact
+# ladder's two sdf-only normal passes (n1 and n2) take the place of the
+# reuse form's one, beside the main closure and the surface-point query:
+# four differentiated encodes, each one histogram per stream under
+# hist_rows; the bf16 policy hands the kernels bf16 payloads and
+# (mxu_rows) a bf16 table
+MODE_CALLS = {"exact_ladder": {"hist_rows": {"level_histogram": 8},
+                               "mxu_rows": {"level_gather": 4,
+                                            "level_histogram": 4},
+                               "sort_pallas_rows": {"segment_sum_sorted": 4}},
+              "bf16_policy": STEP_CALLS}
+
+
+@pytest.mark.parametrize("name", list(MODE_CALLS))
+def test_capture_step_under_each_route_of_a_mode(chip_smoke, name):
+    over = {n: o for n, _, o, _ in chip_smoke.MODE_REFERENCES}[name]
+    cfg = chip_smoke.tiny_config("hist_rows", over)
+    tr = Trainer(cfg, load_synthetic(cfg), device="cpu")
+    tr.epoch = 5
+    tr.global_step = 4                      # a refresh step: captured after
+    for mode, want in MODE_CALLS[name].items():
+        chip_smoke.set_vjp_mode(tr, mode)
+        calls = chip_smoke.capture_step(tr)
+        assert tr.global_step % cfg["tpu"]["occ_update_every"] == 0
+        got = {}
+        for c in calls:
+            got[c["kernel"]] = got.get(c["kernel"], 0) + 1
+        assert got == want, mode
+        for c in calls:
+            a = c["args"]
+            if name != "bf16_policy":
+                continue
+            if c["kernel"] == "level_gather":
+                assert a[1].dtype == torch.bfloat16     # the table
+            else:
+                assert a[1].dtype == (torch.float32 if mode == "mxu_rows"
+                                      else torch.bfloat16)  # the payload
+        assert hashgrid.level_histogram is hist.level_histogram
+
+
+def test_exact_cli_config_cuts_only_depth(chip_smoke, tmp_path):
+    """Phase 11e's config keeps every width of configs/ab_exact.yaml (the
+    exact ladder, no budgets, linear occupancy queries) and cuts frames,
+    epochs and cadence."""
+    import yaml
+    with open(os.path.join(os.path.dirname(_PATH), "configs",
+                           "ab_exact.yaml")) as f:
+        exact = yaml.safe_load(f)
+    cfg = chip_smoke.exact_cli_config(str(tmp_path))
+    for section, kv in exact.items():
+        for key, value in kv.items():
+            cut = chip_smoke.EXACT_CLI_CUTS.get(section, {})
+            if key in cut:
+                assert cfg[section][key] == cut[key]
+            elif (section, key) not in (("exp", "output"),
+                                        ("exp", "exp_name")):
+                assert cfg[section][key] == value, (section, key)
+    assert cfg["tpu"]["band_reuse"] is False
+    assert cfg["data"]["synthetic_res"] == 360
+
+
+def test_modes_only_runs_phase_11_alone(chip_smoke, tmp_path, monkeypatch):
+    """--modes-only: the kernels are built (main), then phase 11 alone runs
+    and the script returns 0; no other phase is called."""
+    import sys
+    from morpheus_tpu_torch.data import dataset
+    seen = []
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py", "--modes-only"])
+    monkeypatch.setattr(dataset, "load_synthetic", lambda cfg: "ds")
+    monkeypatch.setattr(chip_smoke, "modes_phase", lambda device, ds, wd: (
+        seen.append(ds) or ({}, {k: [] for k in chip_smoke.CAPTURED})))
+    for other in ("check_hist", "check_gather", "check_segsum", "main_path",
+                  "sds_phase", "cli_phase", "check_mesh_gather"):
+        monkeypatch.setattr(chip_smoke, other, lambda *a, **k: 1 / 0)
+    assert chip_smoke.run(torch.device("cpu"), "card", str(tmp_path)) == 0
+    assert seen == ["ds"]
+
+
+def _line(case, **kw):
+    row = {"case": case, "phase": "step", "L": 2, "Np": 10, "C": 4,
+           "max_abs_err": 0.0, "ms": 0.1, "call_ms": 0.2, "plain_ms": 1.0,
+           "bound_ms": 0.05, "bound_by": "bytes", "library_ms": 0.3}
+    row.update(kw)
+    return row
+
+
+def test_kernels_line_carries_exact_and_bf16_cases(chip_smoke):
+    """Each kernel's entry takes its largest call of the exact and the bf16
+    step under its own mode (exact_case, bf16_case) and its phase-11
+    launch counts (modes_launches)."""
+    rows = {k: [] for k in chip_smoke.CAPTURED}
+    for k in rows:
+        mode = {"level_histogram": "hist_rows", "level_gather": "mxu_rows",
+                "segment_sum_sorted": "sort_pallas_rows"}[k]
+        for prefix in ("step", "step_sds", "step_exact", "step_bf16"):
+            rows[k] += [_line(f"{prefix}_{mode}_{i}", Np=10 * (i + 1))
+                        for i in range(3)]
+    counts = {k: 7 for k in chip_smoke.CAPTURED}
+    trace = {f"{k}_ms_per_launch": 0.1 for k in chip_smoke.CAPTURED}
+    main = {m: {"launches": counts, "trace": trace}
+            for m in chip_smoke.PATH_KERNELS}
+    modes = {"exact": {"launches": counts}, "bf16": {"launches": counts},
+             "options": {"adan": {"launches": counts}},
+             "cli": {"kernel_launches": counts}}
+    out = chip_smoke.kernels_line(
+        rows, main, {"kernel_launches": [counts]},
+        {"points": [{"epoch": 300, "launches": counts}]},
+        {"kernel_launches": [counts]}, modes,
+        _line("mesh_mxu_rows_0", launches=9, S=1))
+    assert sorted(e["name"] for e in out["kernels"]) == sorted(
+        chip_smoke.CAPTURED)
+    for e in out["kernels"]:
+        for key, prefix in (("exact_case", "step_exact_"),
+                            ("bf16_case", "step_bf16_")):
+            assert e[key]["case"].startswith(prefix)
+            assert e[key]["case"].endswith("_2")          # the largest
+        assert e["modes_launches"] == {"exact": 7, "bf16": 7, "adan": 7,
+                                       "exact_cli": 7}
+        for key in ("name", "route", "source", "replaces", "launches",
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms"):
+            assert key in e
+
+
+def test_bf16_gemm_check_reads_every_layer_of_both_nets(chip_smoke):
+    """Phase 11's check of the bf16 MLP product at the step's own inputs:
+    every layer of the sdf and color nets is read, the readings sit inside
+    their limits, and the bf16-rounded control lies outside them (here both
+    sides are the CPU, so the readings are 0)."""
+    cfg = chip_smoke.tiny_config("hist_rows")
+    cfg["tpu"]["mlp_dtype"] = "bfloat16"
+    tr = Trainer(cfg, load_synthetic(cfg), device="cpu")
+    tr.epoch = 5
+    tr._set_levels(tr._active_levels())
+    res = chip_smoke.bf16_gemm_check(tr)
+    f = tr.field
+    want = [("sdf_net", l) for l in range(len(f.sdf_net.layers))] + [
+        ("color_net", l) for l in range(len(f.color_net.layers))]
+    assert [tuple(s[:2]) for s in res["shapes"]] == want
+    assert all(v <= 1.0 for v in res["err_over_limit"].values())
+    assert res["y_rel_err"] == 0.0
+    assert res["control_rel_err_min"] > chip_smoke.GEMM_TOL

@@ -167,15 +167,38 @@ def test_jax_ckpt_loads_without_jax(jax_ckpt, tmp_path):
 
 
 def test_jax_adan_ckpt_and_foreign_classes_are_refused(jax_ckpt, tmp_path):
+    """A JAX Adan checkpoint (AdanState) now loads, without jax, into an
+    Adan trainer: its step and four state trees come across exactly.
+    Classes foreign to a checkpoint are still refused."""
     jtr, _ = jax_ckpt
+    rng = np.random.default_rng(8)
+    p = jtr.state.params
+
+    def rand(tree):
+        return jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(
+            a.shape).astype(np.float32)), tree)
+
+    opt = joptim.AdanState(step=jnp.asarray(4, jnp.int32), m=rand(p),
+                           v=rand(p), n=rand(p), prev_grad=rand(p))
     adan = types.SimpleNamespace(**{
         **vars(jtr), "optim_name": "adan",
-        "state": jtr.state._replace(opt_state=joptim.adan_init(
-            jtr.state.params))})
+        "state": jtr.state._replace(opt_state=opt)})
     path = str(tmp_path / "models" / "adan.pkl")
     jtrainer.Trainer.save_ckpt(adan, path)
-    with pytest.raises(NotImplementedError, match="A15"):
-        convert.load_jax_ckpt(path)
+    got = _load_without_jax(path, str(tmp_path / "out.pkl"))
+    assert got["optim"]["name"] == "adan" and got["optim"]["step"] == 4.0
+    for k in ("m", "v", "n", "prev_grad"):
+        ref = convert.params_from_jax(jax.tree.map(np.asarray,
+                                                   getattr(opt, k)))
+        assert set(got["optim"][k]) == set(ref)
+        for name, a in ref.items():
+            assert np.array_equal(got["optim"][k][name], a.numpy()), (k, name)
+    _, cfg = tp.config_pair("float32", overrides={"train": {"optim": "adan"}})
+    tr = Trainer(cfg, load_synthetic(cfg), device="cpu")
+    tr.load_state_dict(got)
+    for name, t in zip(tr.optim.names, tr.optim.prev_grad):
+        assert np.array_equal(t.numpy(), got["optim"]["prev_grad"][name])
+    assert float(tr.optim.step) == 4.0
     bad = str(tmp_path / "bad.pkl")
     with open(bad, "wb") as f:
         pickle.dump({"state": {"spec": jtr.spec}}, f)

@@ -334,5 +334,26 @@ def test_hash_spec_rejects_other_vjp_modes():
 
 @pytest.mark.parametrize("interpolation", ["smoothstep", "cubic"])
 def test_hash_spec_rejects_other_interpolations(interpolation):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HashGridSpec(interpolation=interpolation)
+    """The JAX package's interpolations are taken - smoothstep's weights
+    match JAX on the lattice's fractions (the encode itself:
+    tests/test_torch_grid_modes.py) - and a name it does not define
+    raises ValueError."""
+    if interpolation == "cubic":
+        with pytest.raises(ValueError, match="interpolation"):
+            HashGridSpec(interpolation=interpolation)
+        return
+    from morpheus_tpu_torch.ops import hashgrid
+    spec = HashGridSpec(interpolation=interpolation)
+    assert spec.interpolation == "smoothstep"
+    f = np.linspace(0.0, 1.0, 11, dtype=np.float32)
+    lv = hashgrid._levels(spec, 0, 1, 8, torch.device("cpu"))
+    pos = torch.as_tensor(np.stack([f, f * 0.5, 1 - f], -1))[None]
+    w = hashgrid._corner_weights(pos, torch.zeros_like(pos), lv,
+                                 smoothstep=True)
+    s = f * f * (3.0 - 2.0 * f)
+    want = [(s if c & 1 else 1 - s)
+            * (s2 if c & 2 else 1 - s2) * (s3 if c & 4 else 1 - s3)
+            for c in range(8)
+            for s2, s3 in [((f * 0.5) ** 2 * (3 - f), (1 - f) ** 2
+                            * (3 - 2 * (1 - f)))]]
+    close(w[0], np.stack(want), rtol=1e-6, atol=1e-7)

@@ -1,9 +1,12 @@
 """Shared pieces of the trainer parity tests (tests/test_torch_trainer.py,
 tests/test_torch_trainer_modes.py, tests/test_torch_train_steps.py,
-tests/test_torch_sds*.py): a tiny synthetic config, a JAX/port trainer pair
-with the same parameters (and the same random Zero123 guidance), the replay
-of the JAX steps' key trees into the port's named draw sites, and the
-real-loss parity check."""
+tests/test_torch_sds*.py, tests/test_torch_*mode* files): a tiny synthetic
+config with per-section overrides, a JAX/port trainer pair with the same
+parameters (and the same random Zero123 guidance), spec-level options set
+on both (set_spec), the replay of the JAX steps' key trees into the port's
+named draw sites, and the real-loss parity check."""
+import dataclasses
+
 import numpy as np
 import torch
 import jax
@@ -20,6 +23,7 @@ from morpheus_tpu_torch.data.dataset import load_synthetic
 from morpheus_tpu_torch.guidance import zero123 as tz
 from morpheus_tpu_torch.ops import hashgrid, occupancy
 from morpheus_tpu_torch.train.trainer import Trainer
+from morpheus_tpu_torch.utils import Draws
 
 GRIDS = ("sdf_grid", "color_grid")
 
@@ -39,11 +43,45 @@ TINY = {
 }
 
 
-def config_pair(payload, vjp_mode="hist_rows"):
+# configs/ab_exact.yaml's departures from the shipped arm, on TINY: no
+# sample, smooth or band budget, the exact surface-band ladder, linear
+# occupancy queries refreshing a quarter of the cells
+AB_EXACT = {"tpu": {"sample_budget": 0, "band_budget": 0, "smooth_budget": 0,
+                    "band_reuse": False, "occ_query_interp": "linear",
+                    "occ_sample_fraction": 0.25}}
+
+# topo_none off with every dormant smoothness term on
+TOPO = {"train": {"topo_none": False, "normal_dir": True,
+                  "normal_smooth_3d_t": 0.1, "deform_smooth": 0.1,
+                  "deform_smooth_t": 0.1, "topo_smooth_t": 0.1}}
+
+
+def config_pair(payload, vjp_mode="hist_rows", overrides=None):
+    """(JAX config, port config) of TINY with the gradient payload, the
+    vjp_mode and {section: {key: value}} overrides."""
     tiny = {k: dict(v) for k, v in TINY.items()}
     tiny["tpu"]["grad_payload"] = payload
     tiny["tpu"]["vjp_mode"] = vjp_mode
+    for section, kv in (overrides or {}).items():
+        tiny[section].update(kv)
     return jax_merge_defaults(tiny), merge_defaults(tiny)
+
+
+def set_spec(jtr, ttr, grid=None, **field):
+    """Spec-level options that no config key reaches (normal_mode, the
+    grid's interpolation, gridtype, align_corners), set on both trainers as
+    their constructors would have: the port's through Trainer.set_spec, the
+    JAX trainer's here, its occupancy spec keeping the field's
+    interpolation under occ_query_interp 'linear'."""
+    ttr.set_spec(grid, **field)
+    jtr.spec = dataclasses.replace(
+        jtr.spec, grid=dataclasses.replace(jtr.spec.grid, **(grid or {})),
+        **field)
+    occ = jtr.occ_spec.grid.interpolation
+    if jtr.config["tpu"].get("occ_query_interp", "nearest") == "linear":
+        occ = jtr.spec.grid.interpolation
+    jtr.occ_spec = dataclasses.replace(jtr.spec, grid=dataclasses.replace(
+        jtr.spec.grid, interpolation=occ))
 
 
 class ReplayDraws:
@@ -67,23 +105,49 @@ class ReplayDraws:
         return self._get(name, shape).long()
 
 
+def _budget(per_ray, N, total):
+    """Sites a budget of per_ray a ray keeps out of `total` (all when 0)."""
+    return per_ray * N if per_ray and per_ray * N < total else total
+
+
 def render_draws(k_r, cfg, N):
     """The draws of renderer.render_rays under key k_r (renderer.py:154,
-    occupancy.py:179, renderer.py:125,211,393-400)."""
-    tpu = cfg["tpu"]
-    B = tpu["sample_budget"] * N
-    Bs, Bb = tpu["smooth_budget"] * N, tpu["band_budget"] * N
+    occupancy.py:179, renderer.py:125-337 and the two band forms,
+    :393-457): the samples' march, the light, the smoothness subset and
+    perturbation (isotropic, or the ortho phase under normal_dir), the time
+    jitters of the dormant terms (fold_in 1 and 2), and the surface band's
+    draws: the reuse form's subset score and phase (k1, k2 of k_smooth) or
+    the exact ladder's jitter, phase and subset score (k1, k2, k3)."""
+    tpu, tr = cfg["tpu"], cfg["train"]
+    K = tpu["max_samples_per_ray"]
+    B = _budget(tpu["sample_budget"], N, N * K)
+    Bs = _budget(tpu["smooth_budget"], N, B)
     k_march, k_light, k_perturb, k_smooth = jax.random.split(k_r, 4)
     k1, k2 = jax.random.split(k_smooth)
-    return {
+    out = {
         "march": jax.random.uniform(k_march, (N, 1)),
         "light": jax.random.normal(k_light, (3,)),
         "smooth_sel": jax.random.uniform(jax.random.fold_in(k_perturb, 7),
                                          (B,)),
         "perturb": jax.random.normal(k_perturb, (Bs, 3)),
-        "band_sel": jax.random.uniform(k1, (B,)),
-        "band_phase": jax.random.uniform(k2, (Bb, 1)),
+        "perturb_phase": jax.random.uniform(k_perturb, (Bs, 1)),
+        "t_perturb_3d": jax.random.uniform(jax.random.fold_in(k_perturb, 1),
+                                           (Bs, 1)),
+        "t_perturb": jax.random.uniform(jax.random.fold_in(k_perturb, 2),
+                                        (B, 1)),
     }
+    if tpu.get("band_reuse", True) and tpu["band_budget"]:
+        Bb = _budget(tpu["band_budget"], N, B)
+        out["band_sel"] = jax.random.uniform(k1, (B,))
+        out["band_phase"] = jax.random.uniform(k2, (Bb, 1))
+    else:
+        P = int(tr["trunc"] * 100 + 1)
+        k1, k2, k3 = jax.random.split(k_smooth, 3)
+        out["ladder_jitter"] = jax.random.uniform(k1, (P,))
+        out["ladder_sel"] = jax.random.uniform(k3, (P * N,))
+        out["ladder_phase"] = jax.random.uniform(
+            k2, (_budget(tpu["band_budget"], N, P * N), 1))
+    return out
 
 
 def step_draws(key, cfg, num_frames, n_pix, step):
@@ -126,11 +190,15 @@ def _perturb(params):
     return jax.tree.map(jnp.asarray, params)
 
 
-def make_pair(payload, vjp_mode="hist_rows"):
-    jcfg, tcfg = config_pair(payload, vjp_mode)
+def make_pair(payload, vjp_mode="hist_rows", overrides=None, spec=None):
+    """A JAX trainer and a port trainer of config_pair(...) with the same
+    (perturbed) parameters; spec: set_spec's keyword arguments."""
+    jcfg, tcfg = config_pair(payload, vjp_mode, overrides)
     scene = jax_scene(num_frames=4, H=32, W=32)
     jtr = jax_trainer.Trainer(jcfg, jax_dataset.DeformDataset(jcfg, scene))
     ttr = Trainer(tcfg, load_synthetic(tcfg), device="cpu")
+    if spec:
+        set_spec(jtr, ttr, **spec)
     params = _perturb(jtr.state.params)
     jtr.state = jtr.state._replace(params=params)
     ttr.load_params(convert.params_from_jax(jax.tree.map(np.asarray, params)))
@@ -319,21 +387,11 @@ def _abs_hist_grads(monkeypatch, loss_fn, field):
     return {g: h.numpy() for g, h in zip(GRIDS, grads)}
 
 
-def check_real_loss_matches_jax(payload, vjp_mode, monkeypatch):
-    """Trainer.real_loss_from_batch and its parameter gradients against the
-    JAX trainer's on one fixed batch and occupancy grid (tolerances:
-    tests/test_torch_trainer.py)."""
-    jcfg, jtr, ttr = make_pair(payload, vjp_mode)
-    epoch = 6
-    ttr.epoch = jtr.epoch = epoch
-    al = jtr._active_levels()
-    assert ttr._active_levels() == al
-    ttr._set_levels(al)
-    spec = jtr._spec_for_levels(al)
-    assert spec.grid.vjp_mode == ttr.step_field.spec.grid.vjp_mode == vjp_mode
-    max_level = float(jtr.curr.max_level(epoch))
-
-    # a fixed batch and a fixed, partly occupied occupancy grid
+def _fixed_batch(jcfg, jtr):
+    """One fixed ray batch of 64 rays, a fixed partly occupied occupancy
+    grid, a background and the render key, for both sides: (k_r, JAX
+    batch, JAX occupancy, JAX background, port batch, port occupancy,
+    port background)."""
     key = jax.random.PRNGKey(11)
     k_b, k_occ, k_bg, k_r = jax.random.split(key, 4)
     batch = jax_dataset.sample_real_view_rays(k_b, jtr.data, 4, 64)
@@ -343,6 +401,37 @@ def check_real_loss_matches_jax(payload, vjp_mode, monkeypatch):
         occs=jnp.asarray(occs), binaries=jnp.asarray(occs > 0.01).reshape(
             R, R, R))
     bg = jax.random.uniform(k_bg, (64, 3))
+    t_batch = {k: torch.as_tensor(np.array(v)) for k, v in batch.items()}
+    t_batch["rays_id"] = t_batch["rays_id"].long()
+    t_occ = occupancy.OccupancyState(
+        occs=torch.as_tensor(occs),
+        binaries=torch.as_tensor(occs > 0.01).reshape(R, R, R))
+    return k_r, batch, j_occ, bg, t_batch, t_occ, torch.as_tensor(
+        np.array(bg))
+
+
+def _at_epoch(jtr, ttr, epoch):
+    """Both trainers at `epoch` with its active levels: (JAX spec,
+    max_level)."""
+    ttr.epoch = jtr.epoch = epoch
+    al = jtr._active_levels()
+    assert ttr._active_levels() == al
+    ttr._set_levels(al)
+    return jtr._spec_for_levels(al), float(jtr.curr.max_level(epoch))
+
+
+def check_real_loss_matches_jax(payload, vjp_mode, monkeypatch,
+                                overrides=None, spec=None, leaf_atol=0.0):
+    """Trainer.real_loss_from_batch and its parameter gradients against the
+    JAX trainer's on one fixed batch and occupancy grid (tolerances:
+    tests/test_torch_trainer.py). leaf_atol widens each gradient's
+    tolerance by that share of its leaf's largest |gradient| (the callers
+    state why)."""
+    jcfg, jtr, ttr = make_pair(payload, vjp_mode, overrides, spec)
+    epoch = 6
+    spec, max_level = _at_epoch(jtr, ttr, epoch)
+    assert spec.grid.vjp_mode == ttr.step_field.spec.grid.vjp_mode == vjp_mode
+    k_r, batch, j_occ, bg, t_batch, t_occ, t_bg = _fixed_batch(jcfg, jtr)
 
     def jloss(p):
         return jtr.real_loss_from_batch(p, j_occ, k_r, epoch, max_level,
@@ -350,16 +439,10 @@ def check_real_loss_matches_jax(payload, vjp_mode, monkeypatch):
 
     j_l, j_g = jax.jit(jax.value_and_grad(jloss))(jtr.state.params)
 
-    t_batch = {k: torch.as_tensor(np.array(v)) for k, v in batch.items()}
-    t_batch["rays_id"] = t_batch["rays_id"].long()
-    t_occ = occupancy.OccupancyState(
-        occs=torch.as_tensor(occs),
-        binaries=torch.as_tensor(occs > 0.01).reshape(R, R, R))
-
     def t_loss():
         return ttr.real_loss_from_batch(
             t_occ, ReplayDraws(render_draws(k_r, jcfg, 64)), epoch,
-            max_level, t_batch, torch.as_tensor(np.array(bg)))[0]
+            max_level, t_batch, t_bg)[0]
 
     t_l = t_loss()
     t_g = torch.autograd.grad(t_l, ttr.params)
@@ -374,7 +457,69 @@ def check_real_loss_matches_jax(payload, vjp_mode, monkeypatch):
     assert len(flat_got) == len(flat_want)
     for path, g in flat_got:
         name = path[0].key
-        atol = 1e-6 + (2.0 ** -7 * bound[name] if name in bound else 0.0)
         w = flat_want[path]
+        atol = (1e-6 + (2.0 ** -7 * bound[name] if name in bound else 0.0)
+                + leaf_atol * np.abs(w).max())
         bad = np.abs(g - w) > atol + 1e-3 * np.abs(w)
         assert not bad.any(), (jax.tree_util.keystr(path), g[bad], w[bad])
+
+
+def check_trains_and_loss_matches_jax(overrides):
+    """A mode's port trainer trains - three real steps of its own draws from
+    step 0, finite losses, every parameter group moved - and its real-view
+    loss on a fixed batch and occupancy grid matches the JAX trainer's
+    (forward only, rtol 1e-4) from the same parameters and draws."""
+    jcfg, jtr, ttr = make_pair("float32", "hist_rows", overrides)
+    epoch = 6
+    spec, max_level = _at_epoch(jtr, ttr, epoch)
+    k_r, batch, j_occ, bg, t_batch, t_occ, t_bg = _fixed_batch(jcfg, jtr)
+    j_l = jax.jit(lambda p: jtr.real_loss_from_batch(
+        p, j_occ, k_r, epoch, max_level, batch, bg, spec=spec)[0])(
+            jtr.state.params)
+    t_l = ttr.real_loss_from_batch(
+        t_occ, ReplayDraws(render_draws(k_r, jcfg, 64)), epoch, max_level,
+        t_batch, t_bg)[0]
+    np.testing.assert_allclose(t_l.item(), float(j_l), rtol=1e-4)
+    ttr.draws = Draws("cpu", 5)
+    before = [p.detach().clone() for p in ttr.params]
+    losses = [ttr.real_step(epoch).item() for _ in range(3)]
+    assert np.isfinite(losses).all(), losses
+    moved = {name.split(".")[0] for name, a, b in zip(
+        ttr.optim.names, before, ttr.params) if not torch.equal(a, b)}
+    assert moved == {name.split(".")[0] for name in ttr.optim.names}
+    return ttr
+
+
+def check_steps_match_jax(payload="float32", vjp_mode="hist_rows",
+                          overrides=None, spec=None, occ_rtol=1e-5):
+    """Three real training steps of the port against three of the JAX
+    trainer from the same parameters and replayed draws
+    (tests/test_torch_train_steps.py: the first step with the warmup
+    occupancy update, the third with a sampled one). Losses at rtol 1e-4,
+    occupancy values at occ_rtol, the parameters within 2*n*lr after n
+    steps (an optimizer step normalised by the gradient's own scale moves a
+    weight whose gradient is at round-off level by up to a full lr either
+    way)."""
+    jcfg, jtr, ttr = make_pair(payload, vjp_mode, overrides, spec)
+    epoch = 3
+    jtr.epoch = ttr.epoch = epoch
+    al = jtr._active_levels()
+    ttr._set_levels(al)
+    j_step = jtr._make_real_step(al)
+    nf, n_pix, n = 4, 32 * 32, 3
+    for step in range(n):
+        jtr.key, k = jax.random.split(jtr.key)
+        ttr.draws = ReplayDraws(step_draws(k, jcfg, nf, n_pix, step))
+        jtr.state, j_loss = j_step(jtr.state, k, jnp.float32(epoch))
+        t_loss = ttr.real_step(epoch)
+        np.testing.assert_allclose(t_loss.item(), float(j_loss), rtol=1e-4,
+                                   err_msg=f"step {step}")
+        np.testing.assert_allclose(ttr.occ.occs.numpy(),
+                                   np.asarray(jtr.state.occ.occs),
+                                   rtol=occ_rtol, atol=1e-7,
+                                   err_msg=f"occs step {step}")
+    assert ttr.global_step == n
+    assert_trees_close(dict(ttr.field.state_dict()), jtr.state.params,
+                       rtol=0, atol=2 * n * float(jtr.curr.learning_rate(
+                           epoch)), what="params")
+    return jtr, ttr
