@@ -11,6 +11,8 @@
 
     python3 chip_smoke.py --modes-only       # phases 1-2 and 11
 
+    python3 chip_smoke.py --pipeline-only    # phases 1-2 and 12
+
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every hand-written kernel from the sources in this checkout, one
@@ -84,7 +86,21 @@ Phases, in order; any failure exits non-zero:
      ladder, Adan and the topology terms; the CLI on configs/ab_exact.yaml
      (`exact cli:` line). Each kernel's entry in the kernels line carries
      its largest exact and bf16 step calls (exact_case, bf16_case) and its
-     launches in phase 11 (modes_launches).
+     launches in phase 11 (modes_launches);
+  12. the pipeline around training (pipeline_phase): a raw RGB-D capture
+     (4 frames at 480x640, the synthetic sphere before a static wall) is
+     preprocessed by the port's run_pose_init and preprocess_sequence
+     (360x360 virtual cameras), trained by the port's supervisor
+     (morpheus_tpu_torch/scripts/run_full_budget.sh, its real card probe)
+     at configs/synthetic_bench.yaml width, cut to 1 epoch of 1 iteration,
+     with the CLIP eval on a random ViT-B/32 (one finite `==> CLIP=`
+     line; level_histogram launches and no others), then rendered by
+     `python -m morpheus_tpu_torch.visualizer --traj 360` under
+     tpu.vjp_mode mxu_rows (the background TSDF-fused on the card, 4
+     colored 256^3 meshes, 4 PNGs and the mp4); the first level_gather
+     call of frame 0's query becomes the kernel line viewer_mxu_rows_0
+     (`pipeline:` and `viewer:` lines; the kernels line's viewer_case and
+     pipeline_launches).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1376,12 +1392,14 @@ def cli_config(workdir: str) -> dict:
     return cfg
 
 
-def capture_mesh_gather(field, path: str, resolution: int = 128) -> tuple:
-    """One export_mesh of `field`'s canonical mesh with every kernel's
-    launches counted from 0, and its first level_gather call recorded (the
-    first chunk of the dense SDF query; a recorder wraps the name in
-    ops/hashgrid.py, as capture_streams does, and is removed afterwards).
-    Returns (recorded call's args, launches, export info)."""
+def capture_mesh_gather(field, path: str, resolution: int = 128,
+                        **export_kw) -> tuple:
+    """One export_mesh of `field` (its canonical mesh unless export_kw says
+    otherwise: t, cano, color_mesh) with every kernel's launches counted
+    from 0, and its first level_gather call recorded (the first chunk of the
+    dense SDF query; a recorder wraps the name in ops/hashgrid.py, as
+    capture_streams does, and is removed afterwards). Returns (recorded
+    call's args, launches, export info)."""
     import torch
     from morpheus_tpu_torch import mesh_export
     from morpheus_tpu_torch.ops import hashgrid
@@ -1398,7 +1416,7 @@ def capture_mesh_gather(field, path: str, resolution: int = 128) -> tuple:
     try:
         reset_counts()
         info = mesh_export.export_mesh(field, path, resolution=resolution,
-                                       cano=True)[2]
+                                       **(export_kw or {"cano": True}))[2]
         launches = read_counts()
     finally:
         hashgrid.level_gather = real
@@ -2080,19 +2098,248 @@ def modes_phase(device, ds, workdir: str) -> tuple:
     return out, rows
 
 
+# ---- phase 12: the pipeline around training ---------------------------------
+
+# the raw capture of phase 12: frames of a depth camera's size
+RAW_FRAMES, RAW_H, RAW_W = 4, 480, 640
+# the virtual cameras' crop: configs/synthetic_bench.yaml's synthetic_res
+VIRTUAL_SIZE = 360
+# configs/synthetic_bench.yaml's widths on the preprocessed capture, depth
+# cut to one epoch of one iteration, with that epoch's test videos
+PIPELINE_CUTS = {"train": {"n_epochs": 1, "n_iters": 1},
+                 "exp": {"test_interval": 1, "mesh_interval": 1,
+                         "mesh_all_interval": 1,
+                         "mesh_all_eval_interval": 1}}
+
+
+def write_raw_capture(d: str, frames: int = RAW_FRAMES, H: int = RAW_H,
+                      W: int = RAW_W) -> str:
+    """A raw RGB-D capture under d, written as tests/test_preprocess.py
+    writes one: rgb/ depth/ (mm) mask/ PNGs and intrinsics.txt. The scene
+    is data/synthetic's deforming sphere in front of a static, slanted,
+    checkered wall 3.3-3.7 m from the camera (a fixed camera's background,
+    which the viewer fuses)."""
+    import cv2
+    import numpy as np
+    from morpheus_tpu_torch.data.synthetic import make_synthetic_scene
+    sc = make_synthetic_scene(num_frames=frames, H=H, W=W)
+    v, u = np.mgrid[0:H, 0:W]
+    check = ((v // 32 + u // 32) % 2).astype(np.float32)
+    wall = 3.3 + 0.4 * v / H
+    color = np.stack([0.3 + 0.4 * check, np.full_like(check, 0.5),
+                      0.7 - 0.4 * check], -1)
+    bg = sc["masks"] < 0.5
+    depths = np.where(bg, wall, sc["depths"])
+    images = np.where(bg[..., None], color, sc["images"])
+    for sub in ("rgb", "depth", "mask"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    for i in range(frames):
+        cv2.imwrite(os.path.join(d, "rgb", f"{i:04d}.png"),
+                    cv2.cvtColor((images[i] * 255).astype(np.uint8),
+                                 cv2.COLOR_RGB2BGR))
+        cv2.imwrite(os.path.join(d, "depth", f"{i:04d}.png"),
+                    (depths[i] * 1000).astype(np.uint16))
+        cv2.imwrite(os.path.join(d, "mask", f"{i:04d}.png"),
+                    (sc["masks"][i] * 255).astype(np.uint8))
+    np.savetxt(os.path.join(d, "intrinsics.txt"), sc["K"])
+    return d
+
+
+def pipeline_config(workdir: str, data_dir: str, clip_ckpt: str) -> dict:
+    """configs/synthetic_bench.yaml with PIPELINE_CUTS on the preprocessed
+    capture in data_dir, exp.clip_ckpt set, its workspace under workdir:
+    the raw YAML dict phase 12 writes out."""
+    import yaml
+    with open(os.path.join(HERE, "configs", "synthetic_bench.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    for section, kv in PIPELINE_CUTS.items():
+        cfg[section].update(kv)
+    cfg["data"]["data_dir"] = data_dir
+    cfg["exp"].update(output=os.path.join(workdir, "exp"),
+                      exp_name="pipeline", clip_ckpt=clip_ckpt)
+    return cfg
+
+
+def clip_scores(text: str) -> list:
+    """The CLI's `==> CLIP=<mean> (<video>)` scores, as (mean, video)."""
+    return [(float(m), name) for m, name in
+            re.findall(r"==> CLIP=(\S+) \((\S+)\)", text)]
+
+
+def viewer_summary(text: str) -> dict:
+    """The viewer's `viewer-stats` and `kernel-launches` lines: the seconds
+    of the TSDF fusion (tsdf_s, and bg_mesh_s for its extraction and PLY),
+    the foreground exports, rasterization (raster_s, png_s) and the video;
+    the background's voxels and faces; the frames written."""
+    stats = _json_lines(text, "viewer-stats")
+    launches = _json_lines(text, "kernel-launches")
+    if len(stats) != 1 or len(launches) != 1:
+        raise AssertionError("the viewer's output lacks its viewer-stats or "
+                             "kernel-launches line")
+    return {**stats[0], "kernel_launches": launches[0]}
+
+
+def run_supervised(cfg_path: str, ws: str) -> str:
+    """The port's supervisor (morpheus_tpu_torch/scripts/run_full_budget.sh)
+    on the config, with its real card probe; one failure or one stall kill
+    opens its breaker, and the CLI waits for its eval worker. Returns the
+    supervisor's log (the trainer's output)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("TRAINER_CMD", "PROBE_CMD")}
+    env.update(MORPHEUS_EVAL_DRAIN_S="600", WATCH_S="5", SLEEP_RETRY="0",
+               GIVE_UP_AFTER="1", STALL_GIVE_UP_AFTER="1")
+    cmd = ["bash", os.path.join(HERE, "morpheus_tpu_torch", "scripts",
+                                "run_full_budget.sh"), cfg_path, ws]
+    rc = subprocess.run(cmd, cwd=HERE, env=env, timeout=900).returncode
+    with open(os.path.join(ws, "supervisor.log")) as f:
+        text = f.read()
+    if rc != 0 or "run COMPLETE" not in text:
+        raise AssertionError(f"the supervised run exited {rc}:\n"
+                             f"{text[-4000:]}")
+    return text
+
+
+def run_viewer(cfg_path: str, out_path: str) -> str:
+    """python -m morpheus_tpu_torch.visualizer --traj 360 on the card under
+    tpu.vjp_mode mxu_rows; its output (also kept in out_path)."""
+    cmd = [sys.executable, "-m", "morpheus_tpu_torch.visualizer", "--config",
+           cfg_path, "--traj", "360", "tpu", "--vjp_mode", "mxu_rows"]
+    with open(out_path, "w") as out:
+        rc = subprocess.run(cmd, cwd=HERE, stdout=out,
+                            stderr=subprocess.STDOUT, timeout=900).returncode
+    with open(out_path) as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f"the viewer exited {rc}:\n{text[-4000:]}")
+    return text
+
+
+def check_viewer_gather(device, cfg: dict, ws: str) -> dict:
+    """The viewer's per-frame query under mxu_rows, in this process: the
+    trained checkpoint, frame 0's colored 256^3 export, its first
+    level_gather call held against the plain twin and timed (line
+    viewer_mxu_rows_0)."""
+    from morpheus_tpu_torch.config import merge_defaults
+    from morpheus_tpu_torch.data.dataset import DeformDataset
+    from morpheus_tpu_torch.train.trainer import Trainer
+    from morpheus_tpu_torch.visualizer import FG_RES
+    c = merge_defaults(cfg)
+    c["tpu"]["vjp_mode"] = "mxu_rows"
+    trainer = Trainer(c, DeformDataset(c), device=device)
+    trainer.load_ckpt(os.path.join(ws, "models", "model_ep_0001.pkl"))
+    args, launches, info = capture_mesh_gather(
+        trainer.field, os.path.join(ws, "viewer_mxu_rows.ply"),
+        resolution=FG_RES, t=0.0, color_mesh=True)
+    log("viewer export mxu_rows:", json.dumps({**info, "launches": launches}))
+    if args is None or launches["level_gather"] < (FG_RES ** 3 >> 18) \
+            or launches["level_histogram"] or launches["segment_sum_sorted"]:
+        raise AssertionError(f"viewer export under mxu_rows: launches "
+                             f"{launches}")
+    row = gather_line("viewer_mxu_rows_0", *args)
+    row["launches"] = launches["level_gather"]
+    return row
+
+
+def pipeline_phase(device, workdir: str) -> dict:
+    """Phase 12: the pipeline around training through the port's entry
+    points. A raw capture (RAW_FRAMES frames at RAW_H x RAW_W) is
+    preprocessed (run_pose_init, then preprocess_sequence at VIRTUAL_SIZE),
+    trained by the port's supervisor at configs/synthetic_bench.yaml width
+    with the CLIP eval on (a random ViT-B/32 the port writes in the OpenAI
+    layout), then rendered by the viewer; the viewer's first level_gather
+    call is checked and timed in this process. Prints the `pipeline:` and
+    `viewer:` lines; returns their numbers, the kernel launches of the
+    supervised CLI and of the viewer, and the kernel line."""
+    import glob
+
+    import numpy as np
+    import yaml
+    from morpheus_tpu_torch.eval.clip_eval import ImageEncoder
+    from morpheus_tpu_torch.preprocess import pose_init, virtual_cams
+    data_dir = write_raw_capture(os.path.join(workdir, "capture"),
+                                 RAW_FRAMES, RAW_H, RAW_W)
+    t0 = time.perf_counter()
+    pose_init.run_pose_init(data_dir)
+    t1 = time.perf_counter()
+    virtual_cams.preprocess_sequence(data_dir, size_h=VIRTUAL_SIZE,
+                                     size_w=VIRTUAL_SIZE)
+    t2 = time.perf_counter()
+    clip_ckpt = ImageEncoder(device=device).save_checkpoint(
+        os.path.join(workdir, "clip_b32_random.pt"))
+    cfg = pipeline_config(workdir, data_dir, clip_ckpt)
+    cfg_path = os.path.join(workdir, "pipeline.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    ws = os.path.join(cfg["exp"]["output"], cfg["exp"]["exp_name"])
+    log("pipeline phase: a raw capture of", RAW_FRAMES, "frames at",
+        f"{RAW_H}x{RAW_W}; configs/synthetic_bench.yaml cut to",
+        json.dumps(PIPELINE_CUTS))
+
+    t3 = time.perf_counter()
+    text = run_supervised(cfg_path, ws)
+    cli_s = time.perf_counter() - t3
+    scores = clip_scores(text)
+    if len(scores) != 1 or not _finite([scores[0][0]]):
+        raise AssertionError(f"CLIP scores of the supervised run: {scores}")
+    launches = _json_lines(text, "kernel-launches")
+    if len(launches) != 1 or not launches[0]["level_histogram"] \
+            or launches[0]["level_gather"] or launches[0]["segment_sum_sorted"]:
+        raise AssertionError(f"supervised CLI kernel launches {launches}")
+    losses = [s["loss"] for s in _json_lines(text, "epoch-stats")]
+    if len(losses) != 1 or not _finite(losses):
+        raise AssertionError(f"supervised CLI losses {losses}")
+    pipeline = {"frames": RAW_FRAMES, "raw_size": [RAW_H, RAW_W],
+                "virtual_size": VIRTUAL_SIZE, "pose_init_s": t1 - t0,
+                "virtual_cams_s": t2 - t1, "supervised_cli_s": cli_s,
+                "clip": scores[0][0], "clip_video": scores[0][1],
+                "kernel_launches": launches[0], "card": card_line()}
+    log("pipeline:", json.dumps(pipeline))
+
+    t4 = time.perf_counter()
+    viewer = viewer_summary(run_viewer(cfg_path, os.path.join(workdir,
+                                                              "viewer.log")))
+    viewer["viewer_s"] = time.perf_counter() - t4
+    meshes = glob.glob(os.path.join(ws, "mesh_final_color_256", "*.ply"))
+    pngs = glob.glob(os.path.join(ws, "scene_renderings", "rgb", "*.png"))
+    want = {"background": os.path.join(data_dir, "scene_meshes",
+                                       "bg_mesh.ply"),
+            "video": os.path.join(ws, "scene_renderings", "render_360.mp4")}
+    missing = [k for k, p in want.items() if not os.path.exists(p)]
+    n = viewer["kernel_launches"]
+    if missing or len(meshes) != RAW_FRAMES or len(pngs) != RAW_FRAMES \
+            or viewer["frames"] != RAW_FRAMES or not viewer["bg_faces"] \
+            or n["level_gather"] < RAW_FRAMES * 64 or n["level_histogram"] \
+            or n["segment_sum_sorted"]:
+        raise AssertionError(f"viewer: missing {missing}, {len(meshes)} "
+                             f"meshes, {len(pngs)} frames, {viewer}")
+    from morpheus_tpu_torch.ops import meshing
+    for p in meshes:
+        _, faces, colors = meshing.load_ply(p)
+        if not len(faces) or colors is None or not np.isfinite(colors).all():
+            raise AssertionError(f"{p}: {len(faces)} faces, colors {colors}")
+    viewer["card"] = card_line()
+    log("viewer:", json.dumps(viewer))
+    row = check_viewer_gather(device, cfg, ws)
+    return {"pipeline": pipeline, "viewer": viewer, "row": row,
+            "launches": {"cli": launches[0], "viewer": n}}
+
+
 def largest_row(step: list) -> dict:
     """The kernel line of the largest call among `step`'s lines."""
     return max(step, key=lambda r: r["L"] * r["Np"] * r["C"]
                if "Np" in r else r["N"] * r["C"])
 
 
-def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row) -> dict:
+def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
+                 pipeline) -> dict:
     """The {"kernels": [...]} record: each kernel's numbers at its largest
     call of a steady step under its own mode (rows: every kernel line,
     by kernel), its launches on the main path, per launch in each mode's
-    trace, in the CLI runs, at the SDS points and in phase 11, and its
-    largest SDS, exact and bf16 step calls (sds_case, exact_case,
-    bf16_case); level_gather's mesh-export call (mesh_case)."""
+    trace, in the CLI runs, at the SDS points, in phase 11 and in phase
+    12's supervised CLI and viewer (pipeline_launches), and its largest
+    SDS, exact and bf16 step calls (sds_case, exact_case, bf16_case);
+    level_gather's mesh-export call (mesh_case) and the viewer's per-frame
+    query call (viewer_case)."""
 
     def entry(name, replaces, mode):
         # the kernel's numbers at its largest captured call of a step under
@@ -2125,7 +2372,9 @@ def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row) -> dict:
                     "bf16": modes["bf16"]["launches"][name],
                     **{k: v["launches"][name]
                        for k, v in modes["options"].items()},
-                    "exact_cli": modes["cli"]["kernel_launches"][name]}}
+                    "exact_cli": modes["cli"]["kernel_launches"][name]},
+                "pipeline_launches": {
+                    k: v[name] for k, v in pipeline["launches"].items()}}
 
     def largest_case(name, prefix):
         # the kernel's largest call among the lines of one captured step
@@ -2144,11 +2393,14 @@ def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row) -> dict:
               "sort_pallas_rows"),
         entry("level_gather", "morpheus_tpu/ops/gather_pallas.py:79",
               "mxu_rows")]}
-    # the mesh export's call under mxu_rows (phase 9)
-    out["kernels"][2]["mesh_case"] = {
-        k: mesh_row[k] for k in ("case", "launches", "L", "Np", "C", "S",
-                                 "max_abs_err", "ms", "call_ms", "plain_ms",
-                                 "bound_ms", "bound_by", "library_ms")}
+    # the mesh export's call under mxu_rows (phase 9) and the viewer's
+    # per-frame query (phase 12)
+    for key, row in (("mesh_case", mesh_row), ("viewer_case",
+                                                pipeline["row"])):
+        out["kernels"][2][key] = {
+            k: row[k] for k in ("case", "launches", "L", "Np", "C", "S",
+                                "max_abs_err", "ms", "call_ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")}
     return out
 
 
@@ -2200,6 +2452,11 @@ def run(device, card: str, workdir: str) -> int:
         modes, modes_rows = modes_phase(device, ds, workdir)
         log("modes only: phase 11 passed", json.dumps(
             {k: len(v) for k, v in modes_rows.items()}))
+        return 0
+    if "--pipeline-only" in sys.argv[1:]:
+        pipeline_phase(device, workdir)
+        log("pipeline only: preprocessing, the supervised CLI with the CLIP "
+            "eval, the viewer and its level_gather call passed")
         return 0
     if "--cli-only" in sys.argv[1:]:
         check_mesh_gather(device, workdir)
@@ -2255,8 +2512,13 @@ def run(device, card: str, workdir: str) -> int:
     for k, r in modes_rows.items():
         rows[k] += r
     del ds
+    torch.cuda.empty_cache()
+    # phase 12: the pipeline around training
+    pipeline = pipeline_phase(device, workdir)
+    rows["level_gather"].append(pipeline["row"])
 
-    kernels = kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row)
+    kernels = kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
+                           pipeline)
     log("sds:", json.dumps({"setup": sds["setup"], "points": [
         {k: p[k] for k in ("epoch", "rays", "freeze", "active_levels",
                            "sds_step_ms", "peak_mem_gb", "launches_per_step",

@@ -8,8 +8,10 @@ Orchestrates per-scene optimisation, with Zero123 SDS guidance when the
 config asks for it (build_guidance), and periodic diagnostics, as
 morpheus.py:82-330 does: init mesh, test videos every test_interval,
 canonical mesh every mesh_interval, per-frame meshes, mesh videos and the
-detached 3-D metric worker every mesh_all_interval, checkpoints, and resume
-from the newest checkpoint. Training, mesh queries and video renders run on
+detached 3-D metric worker every mesh_all_interval, checkpoints, resume
+from the newest checkpoint, and the CLIP score of the 360-degree test video
+when exp.clip_ckpt names an existing file (morpheus.py:179-184,292-293).
+Training, mesh queries, video renders and the CLIP encoder run on
 `--device` (the card unless told otherwise); iso-surface extraction, mesh
 videos and the metric worker are host code.
 
@@ -70,21 +72,27 @@ def _mem_note(device: torch.device) -> str:
             f" peak={torch.cuda.max_memory_allocated(device) / gib:.2f}")
 
 
-def _check_unported(config, log) -> None:
-    """The CLIP eval is not ported: a configuration that asks for it
-    raises. A Zero123 checkpoint path that does not exist trains
-    recon-only with the reference's warning (morpheus.py:159-161)."""
+def _check_zero123_ckpt(config, log) -> None:
+    """A Zero123 checkpoint path that does not exist trains recon-only with
+    the reference's warning (morpheus.py:159-161)."""
     gd = config["guidance"]
     ckpt = gd.get("zero123_ckpt")
     if gd["model"] and ckpt and ckpt not in ("<random>", "<random-tiny>") \
             and not os.path.exists(ckpt):
         log(f"[warn] zero123 ckpt not found at {ckpt}; "
             "training recon-only (no SDS)")
+
+
+def load_clip_encoder(config, device, log):
+    """The CLIP eval encoder of exp.clip_ckpt on `device`, when that file
+    exists (morpheus.py:179-184); else None, and no CLIP score."""
     clip_ckpt = config["exp"].get("clip_ckpt", "")
-    if clip_ckpt and os.path.exists(clip_ckpt):
-        raise NotImplementedError(
-            f"exp.clip_ckpt {clip_ckpt!r}: the CLIP eval is not ported yet "
-            "(ROADMAP.md queue A, item A11)")
+    if not (clip_ckpt and os.path.exists(clip_ckpt)):
+        return None
+    from .eval.clip_eval import ImageEncoder
+    encoder = ImageEncoder.from_clip_checkpoint(clip_ckpt, device)
+    log(f"Loaded CLIP eval encoder from {clip_ckpt}")
+    return encoder
 
 
 def build_guidance(config, device, log):
@@ -95,7 +103,7 @@ def build_guidance(config, device, log):
     (for driving the SDS path on the CPU), an existing path a real
     checkpoint (its architecture from guidance.zero123_config when that
     file exists); guidance.compute_dtype applies in each case. A path that
-    does not exist (_check_unported warns of it), no guidance.model or no
+    does not exist (_check_zero123_ckpt warns of it), no guidance.model or no
     zero123_ckpt means no guidance (None)."""
     import dataclasses
 
@@ -123,7 +131,8 @@ def build_guidance(config, device, log):
     return None
 
 
-def _kernel_launches() -> dict:
+def kernel_launches() -> dict:
+    """The launches of each hand-written kernel in this process."""
     from .ops import gather, hist, segsum
     return {"level_histogram": hist.level_histogram.launches,
             "level_gather": gather.level_gather.launches,
@@ -164,7 +173,7 @@ def _run(config, device, workspace, log):
     dump_config(config, workspace)
     seed_everything(config["exp"]["seed"])
     file_backup(workspace)
-    _check_unported(config, log)
+    _check_zero123_ckpt(config, log)
 
     scene = (synthetic_scene(config)
              if config["data"]["data_dir"] == "<synthetic>" else None)
@@ -182,6 +191,7 @@ def _run(config, device, workspace, log):
     trainer = Trainer(config, dataset, device=device, guidance=guidance,
                       workspace=workspace)
     del guidance           # the trainer holds it (its CLIP tower on the host)
+    clip_encoder = load_clip_encoder(config, device, log)
 
     # resume from the newest workspace checkpoint unless told otherwise
     # (preemption recovery; the reference only writes a final ckpt)
@@ -213,7 +223,8 @@ def _run(config, device, workspace, log):
                      exp.get("mesh_all_eval_interval", 0), trainer.epoch,
                      max_epochs=max_epochs, log=log)
 
-    _epoch_loop(trainer, dataset, log, workspace, mesh_dir, max_epochs, exp)
+    _epoch_loop(trainer, dataset, log, workspace, mesh_dir, clip_encoder,
+                max_epochs, exp)
     # evals run in detached sessions and survive a trainer crash; on the
     # clean exit path, wait for them so "Training done." implies the final
     # metric rows are on disk. MORPHEUS_EVAL_DRAIN_S=0 skips the wait.
@@ -223,7 +234,7 @@ def _run(config, device, workspace, log):
         log("[eval] WARNING: eval workers still running at exit "
             "(detached; rows will land late)")
     log(f"[eval] waited {time.perf_counter() - t0:.3f} s for eval workers")
-    log("kernel-launches " + json.dumps(_kernel_launches()))
+    log("kernel-launches " + json.dumps(kernel_launches()))
     log("Training done.")
 
 
@@ -244,7 +255,8 @@ def _prune_dense_ckpts(workspace, ci, mesh_all_interval, max_epochs):
             os.remove(old)
 
 
-def _epoch_loop(trainer, dataset, log, workspace, mesh_dir, max_epochs, exp):
+def _epoch_loop(trainer, dataset, log, workspace, mesh_dir, clip_encoder,
+                max_epochs, exp):
     from . import mesh_export
     from .eval.backfill import run_eval_detached
     from .vis import mesh_video
@@ -286,7 +298,9 @@ def _epoch_loop(trainer, dataset, log, workspace, mesh_dir, max_epochs, exp):
                                      for name, kw in (
                 ("test", {"phis": 0}), ("test_180", {"phis": 0.5}),
                 ("test_cano", {"cano": True}),
-                ("test_360", {"view_360": True}),
+                ("test_360", {"view_360": True,
+                              "eval_clip": clip_encoder is not None,
+                              "clip_encoder": clip_encoder, "log": log}),
                 ("test_real", {"real_view": True}))]
 
         if epoch % exp["mesh_interval"] == 0 or epoch == max_epochs:

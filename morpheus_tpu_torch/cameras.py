@@ -2,7 +2,9 @@
 
 numpy versions for host-side scene set-up and torch versions for what runs
 inside a training step (the per-frame pose correction, the virtual camera
-of the SDS step: port of morpheus_tpu/cameras.py:49-152).
+of the SDS step: port of morpheus_tpu/cameras.py:49-152), and the
+decomposition of a projection matrix that the preprocessing and the viewer
+read their cameras with (load_K_Rt_from_P).
 """
 from __future__ import annotations
 
@@ -158,3 +160,32 @@ def sample_virtual_camera(draws, radius: torch.Tensor, theta_range_deg,
     phi = torch.where(use_uniform, phi_u, phi_r)
     c2w = look_at(polar_to_cam_center(radius, theta, phi))
     return c2w, torch.rad2deg(theta), torch.rad2deg(phi)
+
+
+def load_K_Rt_from_P(P: np.ndarray):
+    """Decompose a 3x4 projection matrix into intrinsics (4, 4) and a c2w
+    pose (4, 4) float32 (port of morpheus_tpu/cameras.py:164-191): an RQ
+    decomposition by a flipped QR in numpy, in place of the reference's
+    cv2.decomposeProjectionMatrix (datasets/utils.py:5-26)."""
+    P = np.asarray(P, dtype=np.float64)[:3, :4]
+    M = P[:, :3]
+    # RQ decomposition of M = K R via flipped QR
+    Pflip = np.flipud(M).T
+    Q, R = np.linalg.qr(Pflip)
+    K = np.flipud(np.fliplr(R.T))
+    Rmat = np.flipud(Q.T)
+    # enforce positive diagonal on K
+    sign = np.diag(np.sign(np.diag(K)))
+    K = K @ sign
+    Rmat = sign @ Rmat
+    if np.linalg.det(Rmat) < 0:
+        Rmat = -Rmat
+    t = np.linalg.solve(K, P[:, 3])
+    cam_center = -Rmat.T @ t
+    K = K / K[2, 2]
+    intrinsics = np.eye(4)
+    intrinsics[:3, :3] = K
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = Rmat.T
+    pose[:3, 3] = cam_center
+    return intrinsics, pose

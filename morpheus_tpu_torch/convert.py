@@ -1,7 +1,8 @@
 """Parameter bridge between the JAX package's `init_field` tree
 (morpheus_tpu/model/field.py:135-164) and the port's `Field` state dict,
 between the JAX package's Zero123Guidance leaves and the port's guidance
-state dict (guidance_from_jax), and the reader of the JAX package's
+state dict (guidance_from_jax), between the JAX CLIP eval tower's params
+and the port's (clip_visual_from_jax), and the reader of the JAX package's
 checkpoints.
 
 JAX MLPs are {"w": [(in, out), ...], "b": [(out,), ...]}; the port's
@@ -256,15 +257,15 @@ def _vae_from_jax(out, p, spec):
     _leaf(out, f"{P}post_quant_conv", p["post_quant_conv"])
 
 
-def _clip_from_jax(out, p, spec):
-    P = "cond_stage_model.model.visual."
+def _clip_from_jax(out, p, layers: int,
+                   P: str = "cond_stage_model.model.visual."):
     out[f"{P}conv1.weight"] = np.asarray(
         p["conv1"]["kernel"]).transpose(3, 2, 0, 1)
     for n in ("class_embedding", "positional_embedding", "proj"):
         out[P + n] = np.asarray(p[n])
     _leaf(out, f"{P}ln_pre", p["ln_pre"])
     _leaf(out, f"{P}ln_post", p["ln_post"])
-    for i in range(spec.clip_layers):
+    for i in range(layers):
         d, b = p[f"resblock_{i}"], f"{P}transformer.resblocks.{i}"
         _leaf(out, f"{b}.ln_1", d["ln_1"])
         _leaf(out, f"{b}.ln_2", d["ln_2"])
@@ -282,6 +283,16 @@ def _clip_from_jax(out, p, spec):
         _leaf(out, f"{b}.mlp.c_proj", d["mlp_proj"])
 
 
+def clip_visual_from_jax(params: dict, layers: int
+                         ) -> dict[str, torch.Tensor]:
+    """The JAX package's CLIP tower parameters (clip_vit's flax tree, as
+    ImageEncoder.params holds it, numpy leaves) with `layers` residual
+    blocks -> the port's CLIPVisionTransformer state dict (float32)."""
+    out: dict = {}
+    _clip_from_jax(out, params, layers, P="")
+    return {k: _t(v) for k, v in out.items()}
+
+
 def guidance_from_jax(g, spec) -> dict[str, torch.Tensor]:
     """The JAX package's Zero123Guidance (its unet_params, vae_params,
     clip_params, cc_w and cc_b, as numpy) -> the port's Zero123Guidance
@@ -294,7 +305,7 @@ def guidance_from_jax(g, spec) -> dict[str, torch.Tensor]:
     _unet_from_jax(out, g.unet_params, spec)
     _vae_from_jax(out, g.vae_params, spec)
     if g.clip_params:
-        _clip_from_jax(out, g.clip_params, spec)
+        _clip_from_jax(out, g.clip_params, spec.clip_layers)
     out["cc_projection.weight"] = np.asarray(g.cc_w).T
     out["cc_projection.bias"] = np.asarray(g.cc_b)
     return {k: _t(v) for k, v in out.items()}

@@ -1,7 +1,8 @@
 """RGB-D sequence, real-view ray sampling and eval-render rays (port of
 morpheus_tpu/data/dataset.py: remove_outlier, DeformDataset with its disk
-loader, device_data, sample_real_view_rays, full_frame_rays and the
-fixed-angle form of VirtualViewSampler)."""
+loader, device_data, sample_real_view_rays, full_frame_rays, the
+fixed-angle form of VirtualViewSampler, and the viewer's RenderDataset with
+the raw capture it reads, read_raw_frames)."""
 from __future__ import annotations
 
 import os
@@ -303,3 +304,57 @@ def synthetic_scene(config: dict) -> dict:
     res = int(config["data"].get("synthetic_res", 64))
     return make_synthetic_scene(
         num_frames=int(config["data"].get("synthetic_frames", 8)), H=res, W=res)
+
+
+def read_raw_frames(data_dir: str, depth_scale: float,
+                    image_exts=("png", "jpg")) -> dict:
+    """The raw capture under data_dir: rgb/ (the first of image_exts that
+    has files), depth/ and mask/ -> images (T, H, W, 3) and masks (T, H, W)
+    in [0, 1], depths (T, H, W) in metres, float32."""
+    import cv2
+    p_images = []
+    for ext in image_exts:
+        p_images = p_images or sorted(glob(os.path.join(data_dir,
+                                                        f"rgb/*.{ext}")))
+    p_depths = sorted(glob(os.path.join(data_dir, "depth/*.png")))
+    p_masks = sorted(glob(os.path.join(data_dir, "mask/*.png")))
+    images = np.stack([cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
+                       for p in p_images]).astype(np.float32) / 255.0
+    depths = np.stack([cv2.imread(p, cv2.IMREAD_UNCHANGED)
+                       for p in p_depths]).astype(np.float32) / depth_scale
+    masks_raw = np.stack([cv2.imread(p, cv2.IMREAD_UNCHANGED)
+                          for p in p_masks]).astype(np.float32)
+    if masks_raw.ndim == 4:
+        masks_raw = masks_raw[..., 0]
+    masks = masks_raw / max(masks_raw.max(), 1.0)
+    return {"images": images, "depths": depths, "masks": masks}
+
+
+class RenderDataset(DeformDataset):
+    """World-space rendering dataset: the training layout plus the raw and
+    NDR (normalized) camera spaces (port of morpheus_tpu/data/dataset.py:
+    261-306; reference datasets/dataset.py RenderDataset :581-694). Raw
+    frames live under rgb/ depth/ mask/; the NDR space comes from
+    cameras_sphere.npz (world and scale matrices). The raw camera is static:
+    every frame's raw pose is diag(1, -1, -1, 1)."""
+
+    def __init__(self, config: dict, scene: dict | None = None):
+        super().__init__(config, scene=scene)
+        data_dir = config["data"]["data_dir"]
+        self.raw = read_raw_frames(data_dir, self.cfg["data"]["depth_scale"])
+        self.poses_ndr, self.K_ndr, self.sc_ndr = self._load_ndr(data_dir)
+        self.poses_raw = np.stack(
+            [np.diag([1.0, -1.0, -1.0, 1.0]) for _ in range(self.num_frames)])
+        self.K_raw = self.K_ndr
+
+    def _load_ndr(self, data_dir):
+        cams = np.load(os.path.join(data_dir, "cameras_sphere.npz"))
+        align = np.diag([1.0, -1.0, -1.0, 1.0])
+        poses, Ks = [], []
+        sc = float(cams["scale_mat_0"][0, 0])
+        for i in range(self.num_frames):
+            P = (cams[f"world_mat_{i}"] @ cams[f"scale_mat_{i}"])[:3, :4]
+            K, pose = cameras.load_K_Rt_from_P(P)
+            poses.append(align @ pose.astype(np.float64))
+            Ks.append(K[:3, :3])
+        return np.stack(poses), Ks[0], sc

@@ -10,6 +10,8 @@ mlp.c_proj}, ln_post, proj.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -119,3 +121,40 @@ def vit_l14() -> CLIPVisionTransformer:
 def vit_b32() -> CLIPVisionTransformer:
     return CLIPVisionTransformer(width=768, layers=12, heads=12, patch=32,
                                  out_dim=512)
+
+
+def flax_default_init_(root: nn.Module, gen: torch.Generator,
+                       zero=frozenset()) -> None:
+    """Initialise every Conv2d, Linear, norm and fused CLIP attention under
+    `root` as flax's defaults do: lecun-normal kernels (truncated at two
+    standard deviations), zero biases, unit norms; the weights of the
+    modules whose id() is in `zero` start at zero. Under no_grad."""
+    for m in root.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if id(m) in zero:
+                m.weight.zero_()
+            else:
+                fan_in = m.weight[0].numel()
+                std = math.sqrt(1.0 / fan_in) / .87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std,
+                                      2 * std, generator=gen)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, _Attention):
+            # flax's q/k/v Dense kernels, fused: fan_in = width
+            std = math.sqrt(1.0 / m.in_proj_weight.shape[1]) \
+                / .87962566103423978
+            nn.init.trunc_normal_(m.in_proj_weight, 0.0, std,
+                                  -2 * std, 2 * std, generator=gen)
+            m.in_proj_bias.zero_()
+
+
+def embeddings_init_(model: CLIPVisionTransformer,
+                     gen: torch.Generator) -> None:
+    """The class and positional embeddings and the projection,
+    N(0, 0.02) as the JAX tower's params. Under no_grad."""
+    for p in (model.class_embedding, model.positional_embedding, model.proj):
+        p.normal_(0.0, 0.02, generator=gen)

@@ -13,7 +13,6 @@ flows through the VAE encoder only.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -162,30 +161,8 @@ class Zero123Guidance(nn.Module):
                  if isinstance(m, SpatialTransformer)}
         zero.add(id(g.unet.out[2]))
         with torch.no_grad():
-            for m in g.modules():
-                if isinstance(m, (nn.Conv2d, nn.Linear)):
-                    if id(m) in zero:
-                        m.weight.zero_()
-                    else:
-                        fan_in = m.weight[0].numel()
-                        std = math.sqrt(1.0 / fan_in) / .87962566103423978
-                        nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std,
-                                              2 * std, generator=gen)
-                    if m.bias is not None:
-                        m.bias.zero_()
-                elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
-                    m.weight.fill_(1.0)
-                    m.bias.zero_()
-                elif isinstance(m, clip_vit._Attention):
-                    # flax's q/k/v Dense kernels, fused: fan_in = width
-                    std = math.sqrt(1.0 / m.in_proj_weight.shape[1]) \
-                        / .87962566103423978
-                    nn.init.trunc_normal_(m.in_proj_weight, 0.0, std,
-                                          -2 * std, 2 * std, generator=gen)
-                    m.in_proj_bias.zero_()
-            c = g.clip
-            for p in (c.class_embedding, c.positional_embedding, c.proj):
-                p.normal_(0.0, 0.02, generator=gen)
+            clip_vit.flax_default_init_(g, gen, zero)
+            clip_vit.embeddings_init_(g.clip, gen)
             cd = spec.context_dim
             w = g.cc_projection.weight                      # (cd, cd + 4)
             w.normal_(0.0, 0.02, generator=gen)

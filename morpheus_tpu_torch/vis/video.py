@@ -66,17 +66,21 @@ def eval_render(field, occ, rcfg: renderer.RenderConfig, rays: dict,
 
 def render_test_video(trainer, save_path: str, test_name: str = "test",
                       phis: float = 0.0, cano: bool = False,
-                      real_view: bool = False, view_360: bool = False):
+                      real_view: bool = False, view_360: bool = False,
+                      eval_clip: bool = False, clip_encoder=None, log=print):
     """Render the per-frame diagnostic videos {test_name}_ep{epoch}_rgb.mp4
     and _depth.mp4 (morpheus.py:1285-1375) with the EMA weights, like the
     reference: each frame's real camera (real_view, with the learned pose
     correction), the canonical field from an orbit (cano), an orbit of the
-    deforming field (view_360), or a fixed azimuth phis (in turns). Returns
-    (rgb frames, depth frames), uint8."""
+    deforming field (view_360), or a fixed azimuth phis (in turns). With
+    eval_clip, each rendered frame is scored against the masked GT frame by
+    clip_encoder's cosine similarity and the mean logged as `==> CLIP=`
+    (morpheus.py:1339-1374). Returns (rgb frames, depth frames), uint8."""
     os.makedirs(save_path, exist_ok=True)
     name = f"{test_name}_ep{trainer.epoch:04d}"
     ds, cfg = trainer.dataset, trainer.config
     sampler = data_lib.VirtualViewSampler(ds, cfg, 1.0, trainer.device)
+    clip_total = 0.0
     preds, preds_depth = [], []
     for i in range(ds.num_frames):
         if real_view:
@@ -101,6 +105,17 @@ def render_test_video(trainer, save_path: str, test_name: str = "test",
         dep = dep.reshape(H, W)
         dep = (dep - dep.min()) / (dep.max() - dep.min() + 1e-6)
         preds_depth.append((dep * 255).astype(np.uint8))
+
+        if eval_clip and clip_encoder is not None:
+            # the GT frame on a white background, as the render's
+            gt_mask = (np.asarray(ds.masks[i]) > 0.5).astype(np.float32)
+            gt = np.asarray(ds.images[i]) * gt_mask[..., None] \
+                + (1.0 - gt_mask[..., None])
+            clip_total += clip_encoder.get_similarity_from_image(
+                img01[None], gt[None].astype(np.float32))
+
+    if eval_clip and clip_encoder is not None:
+        log(f"==> CLIP={clip_total / ds.num_frames:.4f} ({name})")
 
     write_frames_video(os.path.join(save_path, f"{name}_rgb.mp4"),
                        np.stack(preds))

@@ -2,8 +2,11 @@
 config of its card-against-CPU phase: the recorders see every kernel call
 that one steady step and one occupancy refresh make under each vjp_mode,
 with arguments cloned, and the real functions, their launch counters and
-the trainer's refresh are restored afterwards."""
+the trainer's refresh are restored afterwards. Also the pure helpers of the
+other phases: configs cut to depth, the kernels line, the phase-12 raw
+capture and output readers, and each --*-only switch."""
 import importlib.util
+import json
 import os
 
 import pytest
@@ -319,8 +322,10 @@ def _line(case, **kw):
 
 def test_kernels_line_carries_exact_and_bf16_cases(chip_smoke):
     """Each kernel's entry takes its largest call of the exact and the bf16
-    step under its own mode (exact_case, bf16_case) and its phase-11
-    launch counts (modes_launches)."""
+    step under its own mode (exact_case, bf16_case), its phase-11 launch
+    counts (modes_launches) and its phase-12 launches in the supervised CLI
+    and the viewer (pipeline_launches); level_gather's entry also takes the
+    viewer's per-frame query call (viewer_case)."""
     rows = {k: [] for k in chip_smoke.CAPTURED}
     for k in rows:
         mode = {"level_histogram": "hist_rows", "level_gather": "mxu_rows",
@@ -339,7 +344,10 @@ def test_kernels_line_carries_exact_and_bf16_cases(chip_smoke):
         rows, main, {"kernel_launches": [counts]},
         {"points": [{"epoch": 300, "launches": counts}]},
         {"kernel_launches": [counts]}, modes,
-        _line("mesh_mxu_rows_0", launches=9, S=1))
+        _line("mesh_mxu_rows_0", launches=9, S=1),
+        {"row": _line("viewer_mxu_rows_0", launches=70, S=1),
+         "launches": {"cli": {**counts, "level_histogram": 6},
+                      "viewer": {**counts, "level_gather": 300}}})
     assert sorted(e["name"] for e in out["kernels"]) == sorted(
         chip_smoke.CAPTURED)
     for e in out["kernels"]:
@@ -349,10 +357,107 @@ def test_kernels_line_carries_exact_and_bf16_cases(chip_smoke):
             assert e[key]["case"].endswith("_2")          # the largest
         assert e["modes_launches"] == {"exact": 7, "bf16": 7, "adan": 7,
                                        "exact_cli": 7}
+        assert e["pipeline_launches"] == {
+            "cli": 6 if e["name"] == "level_histogram" else 7,
+            "viewer": 300 if e["name"] == "level_gather" else 7}
         for key in ("name", "route", "source", "replaces", "launches",
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             assert key in e
+    gather_entry = [e for e in out["kernels"] if e["name"] == "level_gather"]
+    view = gather_entry[0]["viewer_case"]
+    assert view["case"] == "viewer_mxu_rows_0" and view["launches"] == 70
+    for key in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err"):
+        assert key in view
+    assert all("viewer_case" not in e for e in out["kernels"]
+               if e["name"] != "level_gather")
+
+
+def test_pipeline_config_cuts_only_depth(chip_smoke, tmp_path):
+    """Phase 12's config keeps every width of configs/synthetic_bench.yaml,
+    cuts epochs and cadence, and points at the preprocessed capture and
+    the CLIP checkpoint."""
+    import yaml
+    with open(os.path.join(os.path.dirname(_PATH), "configs",
+                           "synthetic_bench.yaml")) as f:
+        bench = yaml.safe_load(f)
+    cfg = chip_smoke.pipeline_config(str(tmp_path), "/data/cap", "/c.pt")
+    for section, kv in bench.items():
+        for key, value in kv.items():
+            cut = chip_smoke.PIPELINE_CUTS.get(section, {})
+            if key in cut:
+                assert cfg[section][key] == cut[key]
+            elif (section, key) not in (("exp", "output"),
+                                        ("exp", "exp_name"),
+                                        ("data", "data_dir")):
+                assert cfg[section][key] == value, (section, key)
+    assert cfg["data"]["data_dir"] == "/data/cap"
+    assert cfg["exp"]["clip_ckpt"] == "/c.pt"
+    assert cfg["train"]["n_epochs"] == 1 and cfg["exp"]["test_interval"] == 1
+    assert cfg["train"]["real_ray_num"] == 2048
+    assert chip_smoke.VIRTUAL_SIZE == cfg["data"]["synthetic_res"] == 360
+
+
+def test_pipeline_line_readers(chip_smoke):
+    """The readers of phase 12's subprocess output: the CLI's CLIP score
+    lines, and the viewer's viewer-stats and kernel-launches lines (a
+    missing line fails)."""
+    cli = ("[2026-01-01_00-00-00] ==> CLIP=0.8123 (test_360_ep0001)\n"
+           "==> CLIP=nan (test_360_ep0002)\n")
+    got = chip_smoke.clip_scores(cli)
+    assert got[0] == (0.8123, "test_360_ep0001")
+    assert got[1][1] == "test_360_ep0002" and got[1][0] != got[1][0]
+    stats = {"tsdf_s": 1.5, "fg_export_s": 9.0, "raster_s": 3.0,
+             "video_s": 0.2, "bg_voxels": 401 ** 3, "bg_faces": 1000,
+             "frames": 4}
+    launches = {"level_histogram": 0, "level_gather": 300,
+                "segment_sum_sorted": 0}
+    text = ("[warn] x\nviewer-stats " + json.dumps(stats)
+            + "\nkernel-launches " + json.dumps(launches) + "\n")
+    assert chip_smoke.viewer_summary(text) == {**stats,
+                                               "kernel_launches": launches}
+    with pytest.raises(AssertionError, match="viewer-stats"):
+        chip_smoke.viewer_summary("kernel-launches " + json.dumps(launches))
+
+
+def test_raw_capture_goes_through_the_preprocessing(chip_smoke, tmp_path):
+    """Phase 12's raw capture at a small size: the object's mask, a wall
+    behind it in every depth frame, and the port's preprocessing writes a
+    training layout the port's dataset loads."""
+    import cv2
+    import numpy as np
+    from morpheus_tpu_torch.config import merge_defaults
+    from morpheus_tpu_torch.data.dataset import DeformDataset
+    from morpheus_tpu_torch.preprocess import pose_init, virtual_cams
+    d = chip_smoke.write_raw_capture(str(tmp_path), frames=2, H=72, W=96)
+    depth = cv2.imread(os.path.join(d, "depth", "0001.png"),
+                       cv2.IMREAD_UNCHANGED)
+    mask = cv2.imread(os.path.join(d, "mask", "0001.png"),
+                      cv2.IMREAD_UNCHANGED)
+    assert depth.shape == (72, 96) and mask.any()
+    assert depth[mask == 0].min() >= 3300 and depth[mask > 0].max() < 3300
+    pose_init.run_pose_init(d)
+    virtual_cams.preprocess_sequence(d, size_h=48, size_w=48)
+    ds = DeformDataset(merge_defaults({"data": {"data_dir": d}}))
+    assert ds.num_frames == 2 and (ds.H, ds.W) == (48, 48)
+    assert np.isfinite(ds.poses).all() and ds.masks.sum() > 50
+
+
+def test_pipeline_only_runs_phase_12_alone(chip_smoke, tmp_path,
+                                           monkeypatch):
+    """--pipeline-only: phase 12 alone runs and the script returns 0."""
+    import sys
+    seen = []
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py", "--pipeline-only"])
+    monkeypatch.setattr(chip_smoke, "pipeline_phase",
+                        lambda device, wd: seen.append(wd) or {})
+    for other in ("check_hist", "check_gather", "check_segsum", "main_path",
+                  "sds_phase", "cli_phase", "check_mesh_gather",
+                  "modes_phase"):
+        monkeypatch.setattr(chip_smoke, other, lambda *a, **k: 1 / 0)
+    assert chip_smoke.run(torch.device("cpu"), "card", str(tmp_path)) == 0
+    assert seen == [str(tmp_path)]
 
 
 def test_bf16_gemm_check_reads_every_layer_of_both_nets(chip_smoke):

@@ -1,7 +1,10 @@
 """The port's trainer CLI (python -m morpheus_tpu_torch) on the CPU: a tiny
 synthetic drive writes the artifacts of morpheus.py (meshes, test videos,
 mesh videos, checkpoints, metric_3d.txt rows from the detached eval worker)
-and a second call resumes from its newest checkpoint. The mesh resolutions
+and a second call resumes from its newest checkpoint; with exp.clip_ckpt
+naming a random ViT-B/32 in the OpenAI layout, each call logs one CLIP score
+of its 360-degree test video, and the port's wallclock_report reads the
+log. The mesh resolutions
 are cut to 16 (canonical and per-frame) and 20 (per-frame at the final
 epoch). Also: the eval worker and its metric subprocess run with jax and the
 JAX package unimportable, and the final epoch's lost metric row is
@@ -55,9 +58,13 @@ def _config(tmp, **exp):
 @pytest.fixture(scope="module")
 def drive(tmp_path_factory):
     """Two CLI calls: 1 epoch, then `train --n_epochs 2`, which resumes.
-    Each ends on a final epoch, which writes every artifact."""
+    Each ends on a final epoch, which writes every artifact and scores the
+    360-degree test video with the CLIP eval encoder."""
+    from morpheus_tpu_torch.eval.clip_eval import ImageEncoder
     tmp = tmp_path_factory.mktemp("cli")
-    cfg = _config(tmp)
+    # the CLIP eval encoder: a random ViT-B/32 (seeded), OpenAI layout
+    cfg = _config(tmp, clip_ckpt=ImageEncoder(device="cpu", seed=1)
+                  .save_checkpoint(str(tmp / "clip_b32.pt")))
     logs = []
     with pytest.MonkeyPatch.context() as m:
         m.setattr(cli, "MESH_RES", 16)
@@ -117,6 +124,36 @@ def test_cli_resumes_from_its_newest_checkpoint(drive):
         assert "Training done." in log
 
 
+def test_cli_logs_one_finite_clip_score_per_run(drive):
+    """exp.clip_ckpt names a random ViT-B/32: each run loads it and logs
+    one CLIP score, of its final epoch's 360-degree test video, as
+    morpheus.py:292-293 does."""
+    _, logs = drive
+    for log, epoch in zip(logs, (1, 2)):
+        assert "Loaded CLIP eval encoder from" in log
+        scores = re.findall(r"==> CLIP=(\S+) \((\S+)\)", log)
+        assert len(scores) == 1, scores
+        assert np.isfinite(float(scores[0][0]))
+        assert scores[0][1] == f"test_360_ep{epoch:04d}"
+
+
+def test_wallclock_report_reads_the_cli_log(drive, capsys):
+    """The port's wallclock_report parses the port CLI's log: its epoch
+    lines (epoch 1 and every tenth, as morpheus.py logs them), the launch
+    and resume markers and the end marker."""
+    from morpheus_tpu_torch.scripts import wallclock_report
+    ws, _ = drive
+    epochs, order = wallclock_report.parse(ws)
+    assert list(epochs) == [1] and epochs[1][1] > 0
+    kinds = [(k, e) for k, _, e in order]
+    assert [k for k, _ in kinds].count("Training done") == 2
+    assert ("epoch", 1) in kinds and ("Resumed", 1) in kinds
+    assert kinds.index(("epoch", 1)) < kinds.index(("Resumed", 1))
+    wallclock_report.main([ws])
+    out = capsys.readouterr().out
+    assert "epoch 1 reached" in out and "stepping" in out
+
+
 def test_cli_refuses_missing_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -173,16 +210,27 @@ def test_dead_eval_worker_leaves_no_inflight_file(tmp_path):
 
 
 def test_missing_zero123_ckpt_warns_and_clip_ckpt_raises(tmp_path):
+    """A missing Zero123 checkpoint warns; an existing exp.clip_ckpt no
+    longer raises: it loads as the CLIP eval encoder (a file that holds no
+    checkpoint fails in the loader), and a missing one means no encoder."""
     from morpheus_tpu_torch.config import merge_defaults
     cfg = merge_defaults({"guidance": {"zero123_ckpt": "/nonexistent.ckpt"}})
     logged = []
-    cli._check_unported(cfg, logged.append)
+    cli._check_zero123_ckpt(cfg, logged.append)
     assert logged and "training recon-only" in logged[0]
     clip = tmp_path / "clip.pt"
-    clip.write_bytes(b"")
     cfg["exp"]["clip_ckpt"] = str(clip)
-    with pytest.raises(NotImplementedError, match="A11"):
-        cli._check_unported(cfg, logged.append)
+    assert cli.load_clip_encoder(cfg, torch.device("cpu"), logged.append) \
+        is None
+    clip.write_bytes(b"")
+    cli._check_zero123_ckpt(cfg, logged.append)
+    with pytest.raises(EOFError):
+        cli.load_clip_encoder(cfg, torch.device("cpu"), logged.append)
+    from morpheus_tpu_torch.eval.clip_eval import ImageEncoder
+    ImageEncoder(device="cpu").save_checkpoint(str(clip))
+    enc = cli.load_clip_encoder(cfg, torch.device("cpu"), logged.append)
+    assert isinstance(enc, ImageEncoder) and enc.device.type == "cpu"
+    assert logged[-1] == f"Loaded CLIP eval encoder from {clip}"
 
 
 def test_final_epoch_row_is_a_backfill_candidate(tmp_path):
