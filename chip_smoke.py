@@ -13,6 +13,11 @@
 
     python3 chip_smoke.py --pipeline-only    # phases 1-2 and 12
 
+    python3 chip_smoke.py --dp-only          # phases 1-2 and 13
+
+    python3 chip_smoke.py --dp-cards         # phases 1-2, then data
+                                             # parallelism over every card
+
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every hand-written kernel from the sources in this checkout, one
@@ -100,7 +105,21 @@ Phases, in order; any failure exits non-zero:
      colored 256^3 meshes, 4 PNGs and the mp4); the first level_gather
      call of frame 0's query becomes the kernel line viewer_mxu_rows_0
      (`pipeline:` and `viewer:` lines; the kernels line's viewer_case and
-     pipeline_launches).
+     pipeline_launches);
+  13. data parallelism (dp_phase, parallel/sharding.py) on the one card:
+     a one-rank NCCL group's trainer against the plain trainer, bit for
+     bit, over 3 real steps of configs/synthetic_bench.yaml (then 10 timed
+     steps); two ranks sharing the card over gloo at the bench's full
+     width (2048 global rays, 1024 a rank): one epoch, 10 timed steps
+     under hist_rows, a step under each vjp_mode with rank 0's kernel
+     calls as lines step_dp_<mode>_<i>, rank 0's one-rank reference of
+     the timed steps (losses at rtol 1e-4, parameters within 2*n*lr), the
+     replicas equal; then 2 data-parallel SDS steps of
+     configs/synthetic_full.yaml at epoch 300 (a 5,184-ray view a rank, the
+     full-size "<random>" Zero123 on each), its gradients against the
+     mean of the views' own; and the CLI's refusal of `tpu
+     --data_parallel 2` on one card (`dp:`, `dp sds:` lines; the kernels
+     line's dp_launches and dp_case).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1529,16 +1548,19 @@ def check_cli_artifacts(ws: str, frames: int, mesh_epochs, final_epochs,
     return radii, (centre, corner)
 
 
-def cli_phase(workdir: str) -> dict:
+def cli_phase(workdir: str, world: int = 1) -> dict:
     """Phase 9: the trainer CLI (python -m morpheus_tpu_torch) on the card
     at configs/synthetic_bench.yaml width with CLI_CUTS: 2 epochs, then the
     same command with `train --n_epochs 3`, which resumes from epoch 2's
     checkpoint. Checks the artifacts of morpheus.py's epoch loop, the
-    meshes, the real-view video, finite losses, the native marcher and the
-    kernel launches each run reports; returns the seconds of each part."""
+    meshes, the real-view video, finite losses, the native marcher, one
+    log line of the end and the kernel launches each run reports; returns
+    the seconds of each part. world > 1: tpu.data_parallel ranks, one
+    card each (--dp-cards)."""
     import numpy as np
     import yaml
     cfg = cli_config(workdir)
+    cfg["tpu"]["data_parallel"] = world
     cfg_path = os.path.join(workdir, "synthetic_bench_cli.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -1549,6 +1571,8 @@ def cli_phase(workdir: str) -> dict:
             for i, extra in enumerate(([], ["train", "--n_epochs", "3"]))]
 
     resumed = f"Resumed from {ws}/models/model_ep_0002.pkl (epoch 2)"
+    if any(r.count("Training done.") != 1 for r in runs):
+        raise AssertionError("a CLI run did not log its end once")
     if "Resumed" in runs[0] or resumed not in runs[1]:
         raise AssertionError("the second CLI run did not resume from epoch 2")
     stats = [_json_lines(r, "epoch-stats") for r in runs]
@@ -1595,8 +1619,8 @@ def cli_phase(workdir: str) -> dict:
            "median_vertex_radius": [min(radii.values()),
                                     max(radii.values())],
            "test_real_centre_corner": [centre, corner],
-           "card": card_line()}
-    log("cli:", json.dumps(out))
+           "world": world, "card": card_line()}
+    log("cli:" if world == 1 else "dp cli:", json.dumps(out))
     return out
 
 
@@ -2324,6 +2348,542 @@ def pipeline_phase(device, workdir: str) -> dict:
             "launches": {"cli": launches[0], "viewer": n}}
 
 
+# ---- phase 13: data parallelism (parallel/sharding.py) -----------------------
+
+DP_WORLD = 2
+DP_TIMED = 10          # timed data-parallel real steps under hist_rows
+DP_EQUAL_STEPS = 3     # one-rank NCCL steps held bit for bit
+DP_SDS_EPOCH = 300     # 5,184 rays a view, the deform freeze on
+DP_SDS_STEPS = 2
+DP_LOSS_RTOL = 1e-4
+# the data-parallel SDS gradients against the mean of the views' own: a
+# leaf's largest difference over its largest |gradient| (float32 sums in
+# another order, the card's atomic accumulations)
+DP_SDS_GRAD_TOL = 1e-3
+
+
+def _sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _peak_gb(device):
+    import torch
+    return (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None)
+
+
+def _batch_tensors(batch: dict, device) -> dict:
+    """A host batch as the trainer's own (_real_batch) makes it."""
+    import torch
+    out = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    out["rays_id"] = out["rays_id"].long()
+    return out
+
+
+def dp_one_rank(device, cfg, ds, n_timed: int = DP_TIMED) -> dict:
+    """Phase 13a: a one-rank NCCL group in this process. Its trainer, the
+    plain one (no group) and a second plain one (the control), from the
+    same seed, take DP_EQUAL_STEPS real steps at epoch n_epochs (the first
+    with the warm-up occupancy update) on the same host-drawn batches,
+    under the route whose kernel sums in a fixed order (sort_pallas_rows)
+    and torch's deterministic algorithms (level_histogram's and
+    index_add_'s float atomics sum in the order the card runs them): the
+    losses, the parameters, the optimizer's slots and the occupancy grid
+    must equal the plain trainer's bit for bit. Then n_timed steps of the
+    one-rank trainer under hist_rows from global step 256."""
+    import warnings
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from morpheus_tpu_torch.parallel import sharding
+    from morpheus_tpu_torch.train.trainer import Trainer
+    red, dev = sharding.init(0, 1, sharding.free_port(), device)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    try:
+        backend = dist.get_backend()
+        det = dict(cfg, tpu=dict(cfg["tpu"], vjp_mode="sort_pallas_rows"))
+        plain, control = (Trainer(det, ds, device=dev) for _ in range(2))
+        one = Trainer(det, ds, device=dev, reducer=red)
+        for tr in (plain, control, one):
+            tr.epoch = cfg["train"]["n_epochs"]
+            tr._set_levels(tr._active_levels())
+        rng = np.random.default_rng(cfg["exp"]["seed"])   # one's twin
+        losses = []
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                # cumsum warns; its per-ray scans are short rows
+                warnings.simplefilter("ignore", UserWarning)
+                for _ in range(DP_EQUAL_STEPS):
+                    b, bg = sharding.host_sample_real_batch(
+                        rng, one.host_data, ds.num_frames,
+                        cfg["train"]["real_ray_num"])
+                    b["bg"] = bg
+                    b = _batch_tensors(b, dev)
+                    bg = b.pop("bg")
+                    lp = plain.real_step(plain.epoch, b, bg)
+                    lc = control.real_step(control.epoch, b, bg)
+                    lo = one.real_step(one.epoch)
+                    losses.append((float(lp), float(lc), float(lo)))
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+        def differ(a, b):
+            pairs = [("params", a.params, b.params),
+                     ("occs", [a.occ.occs], [b.occ.occs])]
+            pairs += [(k, getattr(a.optim, k), getattr(b.optim, k))
+                      for k in a.optim.SLOTS]
+            return [name for name, x, y in pairs
+                    if not all(torch.equal(u, v) for u, v in zip(x, y))]
+
+        one_differs, control_differs = differ(plain, one), differ(plain,
+                                                                  control)
+        equal = not one_differs and all(a == c for a, _, c in losses)
+        if not equal:
+            raise AssertionError(
+                f"one-rank {backend} run differs from the plain trainer: "
+                f"{one_differs}, losses {losses}; the control differs in "
+                f"{control_differs}")
+        del plain, control
+        set_vjp_mode(one, "hist_rows")
+        one.global_step = 256
+        step_ms = []
+        for _ in range(n_timed):
+            _sync(dev)
+            t0 = time.perf_counter()
+            loss = one.real_step(one.epoch)
+            _sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not _finite([float(loss)]):
+            raise AssertionError(f"one-rank run: non-finite loss {loss}")
+    finally:
+        dist.destroy_process_group()
+    return {"backend": backend, "bitwise_equal": equal,
+            "equal_route": "sort_pallas_rows, deterministic algorithms",
+            "control_equal": not control_differs, "losses": losses,
+            "dp_real_step_ms": statistics.median(step_ms),
+            "steps_ms": step_ms}
+
+
+def _count_collectives(fn):
+    """fn() with every all-reduce counted: (its result, {calls, bytes})."""
+    import torch.distributed as dist
+    seen = {"calls": 0, "bytes": 0}
+    real = dist.all_reduce
+
+    def counted(t, *a, **kw):
+        seen["calls"] += 1
+        seen["bytes"] += t.numel() * t.element_size()
+        return real(t, *a, **kw)
+
+    dist.all_reduce = counted
+    try:
+        return fn(), seen
+    finally:
+        dist.all_reduce = real
+
+
+def dp_real(red, device, cfg, ds, n_timed: int = DP_TIMED,
+            lines: bool = True) -> dict:
+    """Phase 13b on one rank: the data-parallel real step of cfg
+    (tpu.data_parallel = world) from one epoch at epoch n_epochs (its
+    warm-up occupancy update), then n_timed steps from global step 256
+    under hist_rows, each ending in a synchronize, with the kernels'
+    launches counted; the collectives of one more step (calls, bytes) and
+    the gradient bucket's all-reduce alone (median of 10); one step under
+    each vjp_mode with rank 0's kernel calls captured; rank 0's one-rank
+    reference of the timed steps (the same state, draws and global batches:
+    losses at DP_LOSS_RTOL, parameters within 2*n*lr); the replicas
+    checked equal. With `lines`, rank 0's captured calls become kernel
+    lines step_dp_<mode>_<i>."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from morpheus_tpu_torch.parallel import sharding
+    from morpheus_tpu_torch.train.trainer import Trainer
+    rank0 = red.rank == 0
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, ds, device=device, reducer=red)
+    tr.epoch = cfg["train"]["n_epochs"]
+    tr.train_one_epoch(n_iters=1)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    tr.global_step = 256
+    # (deep copies: on the CPU state_dict's arrays share the live storage)
+    state0 = copy.deepcopy(tr.state_dict()) if rank0 else None
+    rng0 = copy.deepcopy(tr._np_rng)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    step_ms, losses = [], []
+    for _ in range(n_timed):
+        _sync(device)
+        t0 = time.perf_counter()
+        loss = tr.real_step(tr.epoch)
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = {"hist_rows": read_counts()}
+    peak = _peak_gb(device)
+    after = [p.detach().clone() for p in tr.params] if rank0 else None
+    if not _finite(losses):
+        raise AssertionError(f"data-parallel step: non-finite loss {losses}")
+
+    if tr.global_step % cfg["tpu"]["occ_update_every"] == 0:
+        tr.global_step += 1
+    _, coll = _count_collectives(lambda: tr.real_step(tr.epoch))
+    n_bucket = sum(p.numel() for p in tr.params) + 1
+    bucket = torch.zeros(n_bucket, device=device)
+    bucket_ms = []
+    for _ in range(10):
+        _sync(device)
+        t0 = time.perf_counter()
+        dist.all_reduce(bucket)
+        _sync(device)
+        bucket_ms.append((time.perf_counter() - t0) * 1e3)
+
+    calls, called = {}, {}
+    for mode in PATH_KERNELS:
+        set_vjp_mode(tr, mode)
+        if tr.global_step % cfg["tpu"]["occ_update_every"] == 0:
+            tr.global_step += 1
+        calls[mode] = []
+        originals = recording(calls[mode], ["step"]) if rank0 else None
+        reset_counts()
+        try:
+            tr.real_step(tr.epoch)
+            _sync(device)
+        finally:
+            if originals:
+                restore(originals)
+        counts = read_counts()
+        if mode != "hist_rows":
+            launches[mode] = counts
+        called[mode] = {k: v for k, v in counts.items() if v}
+        # (on the CPU the wrappers launch nothing and count nothing)
+        if device.type == "cuda" and \
+                set(called[mode]) != set(PATH_KERNELS[mode]):
+            raise AssertionError(f"data-parallel step under {mode} launched "
+                                 f"{counts}")
+    set_vjp_mode(tr, "hist_rows")
+    equal = sharding.replicas_equal(tr)
+    if not equal:
+        raise AssertionError("data-parallel ranks' states differ")
+
+    out = {"rank": red.rank, "world": red.world, "backend":
+           dist.get_backend(), "rays_per_rank":
+           cfg["train"]["real_ray_num"] // red.world, "setup_s": setup_s,
+           "dp_real_step_ms": statistics.median(step_ms),
+           "steps_ms": step_ms, "losses": losses, "launches": launches,
+           "collectives_per_step": coll["calls"],
+           "allreduce_bytes_per_step": coll["bytes"],
+           "grad_bucket_bytes": 4 * n_bucket,
+           "grad_bucket_allreduce_ms": statistics.median(bucket_ms),
+           "replicas_equal": equal, "peak_mem_gb": peak}
+    if rank0:
+        # the one-rank reference: the same state, draws and global batches
+        ref = Trainer(dict(cfg, tpu=dict(cfg["tpu"], data_parallel=1)), ds,
+                      device=device)
+        ref.load_state_dict(state0)
+        ref._set_levels(ref._active_levels())
+        ref_losses = []
+        for _ in range(n_timed):
+            b, bg = sharding.host_sample_real_batch(
+                rng0, tr.host_data, ds.num_frames,
+                cfg["train"]["real_ray_num"])
+            b["bg"] = bg
+            b = _batch_tensors(b, device)
+            ref_losses.append(float(ref.real_step(ref.epoch, b,
+                                                  b.pop("bg"))))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                            ref_losses))
+        param_diff = max(float((a - b.detach()).abs().max())
+                         for a, b in zip(after, ref.params))
+        limit = 2 * n_timed * float(tr.curr.learning_rate(tr.epoch))
+        out.update(ref_losses=ref_losses, loss_max_rel_diff=loss_rel,
+                   loss_rtol=DP_LOSS_RTOL, param_max_diff=param_diff,
+                   param_limit=limit)
+        if loss_rel > DP_LOSS_RTOL or param_diff > limit:
+            raise AssertionError(
+                f"data-parallel run against the one-rank run: losses "
+                f"{losses} vs {ref_losses}, params {param_diff} (limit "
+                f"{limit})")
+        del ref
+        if lines:
+            rows = {k: [] for k in CAPTURED}
+            for mode, c in calls.items():
+                for k, r in step_lines(mode, c, prefix="step_dp",
+                                       k=MODES_K).items():
+                    rows[k] += r
+            out["rows"] = rows
+    red.barrier()
+    del tr
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_sds(red, device, cfg, ds, epoch: int = DP_SDS_EPOCH,
+           n: int = DP_SDS_STEPS) -> dict:
+    """Phase 13c on one rank: the data-parallel SDS step of cfg (the
+    CLI's guidance, built alike on every rank and checked so by a digest),
+    one view a rank, n steps at `epoch` from step 0: finite losses, launches,
+    the replicas equal, and on rank 0 the first step's gradients (handed to
+    the optimizer under the deform freeze) against the mean of the two
+    views' own gradients taken on rank 0 from the same state and draws."""
+    import torch
+    from morpheus_tpu_torch.__main__ import build_guidance
+    from morpheus_tpu_torch.parallel import sharding
+    from morpheus_tpu_torch.train.trainer import Trainer
+    import copy
+
+    rank0 = red.rank == 0
+    t0 = time.perf_counter()
+    g = build_guidance(cfg, device, log if rank0 else (lambda *a: None))
+    same_guidance = red.agree(sharding.digest(g.state_dict()))
+    if not same_guidance:
+        raise AssertionError("the ranks' random Zero123 weights differ")
+    tr = Trainer(cfg, ds, device=device, guidance=g, reducer=red)
+    del g
+    tr.epoch = epoch
+    tr._set_levels(tr._active_levels())
+    sampler = tr.virtual_sampler(tr._novel_view_scale())
+    setup_s = time.perf_counter() - t0
+    state0 = copy.deepcopy(tr.state_dict()) if rank0 else None
+    applied = []
+    update = tr.optim.update
+
+    def record(grads, lr, **kw):
+        if not applied:
+            applied.append([x.detach().clone() for x in grads])
+        return update(grads, lr, **kw)
+
+    tr.optim.update = record
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    step_ms, losses = [], []
+    try:
+        for _ in range(n):
+            _sync(device)
+            t0 = time.perf_counter()
+            loss, _ = tr.virtual_step(epoch, sampler)
+            _sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+    finally:
+        del tr.optim.update
+    launches = read_counts()
+    peak = _peak_gb(device)
+    if not _finite(losses) or not applied:
+        raise AssertionError(f"data-parallel SDS step: losses {losses}, "
+                             f"optimizer steps {len(applied)}")
+    equal = sharding.replicas_equal(tr)
+    if not equal:
+        raise AssertionError("data-parallel SDS ranks' states differ")
+    out = {"rank": red.rank, "epoch": epoch,
+           "rays_per_view": sampler.H * sampler.W, "setup_s": setup_s,
+           "sds_step_ms": step_ms, "losses": losses, "launches": launches,
+           "same_guidance": same_guidance, "replicas_equal": equal,
+           "peak_mem_gb": peak}
+    if rank0:
+        tr.load_state_dict(state0)
+        want = None
+        for v in range(red.world):
+            tr.load_state_dict(state0)
+            draws = tr.draws
+            occ = tr._maybe_update_occ(tr.occ, tr.global_step,
+                                       draws.uniform("t_occ", ()), draws)
+            loss, _ = tr._virtual_loss(
+                occ, sharding.ViewDraws(draws, v, red.world), epoch,
+                tr.curr.max_level(epoch), sampler)
+            gv = tr._grads(loss)
+            want = gv if want is None else [a + b for a, b in zip(want, gv)]
+        vf = float(cfg["train"]["virtual_freq"])
+        worst = 0.0
+        for got, w in zip(applied[0], want):
+            w = w / red.world / vf
+            scale = float(w.abs().max())
+            if scale > 0:
+                worst = max(worst, float((got - w).abs().max()) / scale)
+        out.update(grad_max_rel_diff=worst, grad_tol=DP_SDS_GRAD_TOL)
+        if not worst <= DP_SDS_GRAD_TOL:
+            raise AssertionError(f"data-parallel SDS gradients differ from "
+                                 f"the views' mean by {worst}")
+    red.barrier()
+    del tr
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(red, device, out_dir: str, real_cfg: dict, sds_cfg: dict,
+            n_timed: int = DP_TIMED, sds_epoch: int = DP_SDS_EPOCH):
+    """One rank of phase 13 (sharding.launch): dp_real on real_cfg, then
+    dp_sds on sds_cfg at sds_epoch; writes out_dir/rank<r>.json."""
+    import torch
+    from morpheus_tpu_torch.data.dataset import load_synthetic
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # configs/synthetic_full.yaml has synthetic_bench's scene
+    ds = load_synthetic(real_cfg)
+    res = {"real": dp_real(red, device, real_cfg, ds, n_timed,
+                           lines=device.type == "cuda"),
+           "sds": dp_sds(red, device, sds_cfg, ds, sds_epoch)}
+    with open(os.path.join(out_dir, f"rank{red.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def dp_configs(world: int = DP_WORLD) -> tuple:
+    """(the bench's config, synthetic_full's), each at tpu.data_parallel
+    `world`."""
+    from morpheus_tpu_torch.config import load_config
+    out = []
+    for name in ("synthetic_bench.yaml", "synthetic_full.yaml"):
+        cfg = load_config(os.path.join(HERE, "configs", name))
+        cfg["tpu"]["data_parallel"] = world
+        out.append(cfg)
+    return tuple(out)
+
+
+def dp_cli_refusal() -> dict:
+    """The CLI with `tpu --data_parallel 2` on one card: refused before a
+    rank starts, naming the visible card count."""
+    cmd = [sys.executable, "-m", "morpheus_tpu_torch", "--config",
+           os.path.join(HERE, "configs", "synthetic_bench.yaml"), "tpu",
+           "--data_parallel", str(DP_WORLD)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=300)
+    want = f"tpu.data_parallel={DP_WORLD} but only 1 CUDA devices are visible"
+    if proc.returncode == 0 or want not in proc.stderr:
+        raise AssertionError(f"the CLI on one card did not refuse "
+                             f"data_parallel {DP_WORLD}: rc "
+                             f"{proc.returncode}\n{proc.stderr[-2000:]}")
+    return {"rc": proc.returncode, "error": want,
+            "seconds": time.perf_counter() - t0}
+
+
+def dp_phase(device, workdir: str) -> tuple:
+    """Phase 13: data parallelism on the one card. (a) a one-rank NCCL
+    group against the plain trainer, bit for bit (dp_one_rank, at
+    configs/synthetic_bench.yaml); (b, c) two ranks sharing the card over
+    gloo (sharding.launch's share_card), each running dp_real at the
+    bench's full width (2048 global rays, 1024 a rank) and dp_sds at
+    configs/synthetic_full.yaml's (the "<random>" full-size Zero123, one
+    5,184-ray view a rank); (d) the CLI's refusal of two ranks on one
+    card. Prints the `dp:` and `dp sds:` lines; returns (results, rank 0's
+    kernel lines)."""
+    from morpheus_tpu_torch.data.dataset import load_synthetic
+    from morpheus_tpu_torch.parallel import sharding
+    t_phase = time.perf_counter()
+    real_cfg, sds_cfg = dp_configs()
+    one_cfg = dict(real_cfg, tpu=dict(real_cfg["tpu"], data_parallel=1))
+    one = dp_one_rank(device, one_cfg, load_synthetic(one_cfg))
+    log("dp one rank:", json.dumps(one))
+    out_dir = os.path.join(workdir, "dp")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    sharding.launch(dp_rank, DP_WORLD, device.type, args=(
+        out_dir, real_cfg, sds_cfg), share_card=True)
+    ranks_s = time.perf_counter() - t0
+    result, sds_line, rows = dp_summary(out_dir, DP_WORLD)
+    cli = dp_cli_refusal()
+    result.update({
+        "dp_real_step_ms": {"world_1": one["dp_real_step_ms"],
+                            "world_2": result["dp_real_step_ms"]},
+        "world_1_backend": one["backend"],
+        "world_1_bitwise_equal": one["bitwise_equal"],
+        "ranks_s": ranks_s, "cli_refusal": cli})
+    log("dp:", json.dumps(result))
+    log("dp sds:", json.dumps(sds_line))
+    log(f"phase 13 seconds: {time.perf_counter() - t_phase:.1f}")
+    result["sds"] = sds_line
+    return result, rows
+
+
+def dp_summary(out_dir: str, world: int) -> tuple:
+    """What the ranks of dp_rank wrote to out_dir, checked: each kernel of
+    each mode launched in every rank, the ranks' losses equal. Returns
+    (the real steps' line, the SDS steps' line, rank 0's kernel lines)."""
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    real = [r["real"] for r in ranks]
+    sds = [r["sds"] for r in ranks]
+    for r in real:
+        for mode, counts in r["launches"].items():
+            for k in PATH_KERNELS[mode]:
+                if counts[k] < 1:
+                    raise AssertionError(f"rank {r['rank']}: {k} did not run "
+                                         f"under {mode}: {counts}")
+    if len({r["losses"][-1] for r in real}) != 1:
+        raise AssertionError("the ranks report different losses")
+    r0 = real[0]
+    result = {
+        "world": world, "backend": r0["backend"],
+        "rays_per_rank": r0["rays_per_rank"],
+        "dp_real_step_ms": [r["dp_real_step_ms"] for r in real],
+        "collectives_per_step": r0["collectives_per_step"],
+        "allreduce_bytes_per_step": r0["allreduce_bytes_per_step"],
+        "grad_bucket_bytes": r0["grad_bucket_bytes"],
+        "grad_bucket_allreduce_ms": [r["grad_bucket_allreduce_ms"]
+                                     for r in real],
+        "loss_max_rel_diff": r0["loss_max_rel_diff"],
+        "loss_rtol": r0["loss_rtol"],
+        "param_max_diff": r0["param_max_diff"],
+        "param_limit": r0["param_limit"],
+        "replicas_equal": all(r["replicas_equal"] for r in real),
+        "peak_mem_gb": [r["peak_mem_gb"] for r in real],
+        "launches": [r["launches"] for r in real], "card": card_line()}
+    sds_line = {
+        "world": world, "epoch": sds[0]["epoch"],
+        "rays_per_view": sds[0]["rays_per_view"],
+        "sds_step_ms": [s["sds_step_ms"] for s in sds],
+        "losses": sds[0]["losses"],
+        "grad_max_rel_diff": sds[0]["grad_max_rel_diff"],
+        "grad_tol": sds[0]["grad_tol"],
+        "same_guidance": all(s["same_guidance"] for s in sds),
+        "replicas_equal": all(s["replicas_equal"] for s in sds),
+        "peak_mem_gb": [s["peak_mem_gb"] for s in sds],
+        "launches": [s["launches"] for s in sds],
+        "setup_s": [s["setup_s"] for s in sds]}
+    return result, sds_line, r0.get("rows", {k: [] for k in CAPTURED})
+
+
+def dp_cards_phase(workdir: str) -> dict:
+    """Data parallelism over every visible card (`--dp-cards`; not part of
+    the one-card run): dp_rank on one NCCL rank a card (the bench's 2048
+    global rays split over them; one SDS view a card), then the CLI on
+    configs/synthetic_bench.yaml cut in depth (cli_phase) with
+    tpu.data_parallel = the card count (`dp cards:`, `dp cards sds:` and
+    `dp cli:` lines)."""
+    import torch
+    from morpheus_tpu_torch.parallel import sharding
+    world = torch.cuda.device_count()
+    if world < 2:
+        raise AssertionError(f"--dp-cards needs 2 cards or more, not {world}")
+    real_cfg, sds_cfg = dp_configs(world)
+    out_dir = os.path.join(workdir, "dp_cards")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    sharding.launch(dp_rank, world, "cuda", args=(out_dir, real_cfg,
+                                                   sds_cfg))
+    result, sds_line, _ = dp_summary(out_dir, world)
+    result["ranks_s"] = time.perf_counter() - t0
+    log("dp cards:", json.dumps(result))
+    log("dp cards sds:", json.dumps(sds_line))
+    result["sds"] = sds_line
+    result["cli"] = cli_phase(workdir, world)
+    return result
+
+
 def largest_row(step: list) -> dict:
     """The kernel line of the largest call among `step`'s lines."""
     return max(step, key=lambda r: r["L"] * r["Np"] * r["C"]
@@ -2331,13 +2891,15 @@ def largest_row(step: list) -> dict:
 
 
 def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
-                 pipeline) -> dict:
+                 pipeline, dp) -> dict:
     """The {"kernels": [...]} record: each kernel's numbers at its largest
     call of a steady step under its own mode (rows: every kernel line,
     by kernel), its launches on the main path, per launch in each mode's
     trace, in the CLI runs, at the SDS points, in phase 11 and in phase
-    12's supervised CLI and viewer (pipeline_launches), and its largest
-    SDS, exact and bf16 step calls (sds_case, exact_case, bf16_case);
+    12's supervised CLI and viewer (pipeline_launches), its launches in
+    each rank of phase 13 under each mode and in its SDS steps
+    (dp_launches), and its largest SDS, exact, bf16 and data-parallel
+    step calls (sds_case, exact_case, bf16_case, dp_case);
     level_gather's mesh-export call (mesh_case) and the viewer's per-frame
     query call (viewer_case)."""
 
@@ -2374,12 +2936,17 @@ def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
                        for k, v in modes["options"].items()},
                     "exact_cli": modes["cli"]["kernel_launches"][name]},
                 "pipeline_launches": {
-                    k: v[name] for k, v in pipeline["launches"].items()}}
+                    k: v[name] for k, v in pipeline["launches"].items()},
+                "dp_launches": {
+                    **{m: [r[m][name] for r in dp["launches"]]
+                       for m in PATH_KERNELS},
+                    "sds": [r[name] for r in dp["sds"]["launches"]]},
+                "dp_case": largest_case(name, f"step_dp_{mode}_")}
 
     def largest_case(name, prefix):
         # the kernel's largest call among the lines of one captured step
-        # (the SDS step at scale 0.5, the exact step, the bf16 step) under
-        # its own mode
+        # (the SDS step at scale 0.5, the exact step, the bf16 step, rank
+        # 0's data-parallel step) under its own mode
         row = largest_row([r for r in rows[name]
                            if r["case"].startswith(prefix)])
         return {k: row[k] for k in ("case", "dtype", "table", "max_abs_err",
@@ -2458,6 +3025,15 @@ def run(device, card: str, workdir: str) -> int:
         log("pipeline only: preprocessing, the supervised CLI with the CLIP "
             "eval, the viewer and its level_gather call passed")
         return 0
+    if "--dp-cards" in sys.argv[1:]:
+        dp_cards_phase(workdir)
+        log("dp cards: data parallelism over every card passed")
+        return 0
+    if "--dp-only" in sys.argv[1:]:
+        dp, dp_rows = dp_phase(device, workdir)
+        log("dp only: phase 13 passed", json.dumps(
+            {k: len(v) for k, v in dp_rows.items()}))
+        return 0
     if "--cli-only" in sys.argv[1:]:
         check_mesh_gather(device, workdir)
         cli_phase(workdir)
@@ -2516,9 +3092,13 @@ def run(device, card: str, workdir: str) -> int:
     # phase 12: the pipeline around training
     pipeline = pipeline_phase(device, workdir)
     rows["level_gather"].append(pipeline["row"])
+    # phase 13: data parallelism
+    dp, dp_rows = dp_phase(device, workdir)
+    for k, r in dp_rows.items():
+        rows[k] += r
 
     kernels = kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
-                           pipeline)
+                           pipeline, dp)
     log("sds:", json.dumps({"setup": sds["setup"], "points": [
         {k: p[k] for k in ("epoch", "rays", "freeze", "active_levels",
                            "sds_step_ms", "peak_mem_gb", "launches_per_step",

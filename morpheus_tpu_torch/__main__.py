@@ -19,6 +19,12 @@ Besides the reference's log, every epoch logs one `epoch-stats {json}` line
 (the loss and the seconds of each part of the epoch), every mesh export one
 `mesh-export {json}` line, and the run ends with `kernel-launches {json}`,
 the launches of each hand-written kernel in this process.
+
+With `tpu --data_parallel N` (or tpu.data_parallel in the YAML) the CLI
+starts N ranks itself (parallel/sharding.py: NCCL, one card a rank; gloo
+under `--device cpu`), which train one scene together; rank 0 alone logs,
+writes the checkpoints, exports the meshes, renders the videos, scores
+CLIP and starts the eval worker, while the other ranks step and wait.
 """
 from __future__ import annotations
 
@@ -141,7 +147,7 @@ def kernel_launches() -> dict:
 
 def main(argv=None):
     from .config import parse_cli
-    from .utils import Logger, resolve_device
+    from .utils import resolve_device
 
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda",
@@ -149,16 +155,47 @@ def main(argv=None):
     args, rest = pre.parse_known_args(argv)
     config = parse_cli(rest)
     device = resolve_device(args.device)
+    world = int(config["tpu"].get("data_parallel", 1))
+    if world > 1:
+        import importlib
+
+        from .parallel import sharding
+        sharding.check_rays(config, world)
+        # the ranks find _rank_main by the package's module name: spawn does
+        # not run a package's __main__ again in a child; they export at this
+        # process's mesh resolutions
+        cli = importlib.import_module("morpheus_tpu_torch.__main__")
+        sharding.launch(cli._rank_main, world, device, args=(
+            config, (MESH_RES, MESH_ALL_RES, MESH_ALL_FINAL_RES)))
+        return
+    _main(config, device)
+
+
+def _rank_main(red, device, config, mesh_res):
+    """One rank of a data-parallel CLI run (sharding.launch)."""
+    global MESH_RES, MESH_ALL_RES, MESH_ALL_FINAL_RES
+    MESH_RES, MESH_ALL_RES, MESH_ALL_FINAL_RES = mesh_res
+    _main(config, device, red)
+
+
+def _main(config, device, red=None):
+    from .parallel.sharding import LOCAL
+    from .utils import Logger
+
+    red = red or LOCAL
     workspace = os.path.join(config["exp"]["output"], config["exp"]["exp_name"])
+    if red.rank != 0:
+        _run(config, device, workspace, lambda *args: None, red)
+        return
     os.makedirs(workspace, exist_ok=True)
     log = Logger(workspace, config["exp"]["log"])
     try:
-        _run(config, device, workspace, log)
+        _run(config, device, workspace, log, red)
     finally:
         log.close()
 
 
-def _run(config, device, workspace, log):
+def _run(config, device, workspace, log, red):
     from . import mesh_export
     from .config import dump_config
     from .data.dataset import DeformDataset, synthetic_scene
@@ -166,20 +203,22 @@ def _run(config, device, workspace, log):
     from .train.trainer import Trainer
     from .utils import file_backup, seed_everything
 
+    rank0 = red.rank == 0
     degrade = int(os.environ.get("MORPHEUS_DEGRADE", "0") or 0)
     if degrade:
         for note in _apply_degrade(config, degrade):
             log(f"[degrade L{degrade}] {note}")
-    dump_config(config, workspace)
+    if rank0:
+        dump_config(config, workspace)
+        file_backup(workspace)
     seed_everything(config["exp"]["seed"])
-    file_backup(workspace)
     _check_zero123_ckpt(config, log)
 
     scene = (synthetic_scene(config)
              if config["data"]["data_dir"] == "<synthetic>" else None)
     dataset = DeformDataset(config, scene=scene)
     log(f"Loaded {dataset.num_frames} frames at {dataset.H}x{dataset.W}")
-    if scene is not None:
+    if scene is not None and rank0:
         # GT backprojection meshes, so the 3-D metric pipeline (Acc/Comp,
         # tools/culling.py:262-268 protocol) runs on the synthetic scene as
         # it would on a KillingFusion scan
@@ -189,9 +228,9 @@ def _run(config, device, workspace, log):
 
     guidance = build_guidance(config, device, log)
     trainer = Trainer(config, dataset, device=device, guidance=guidance,
-                      workspace=workspace)
+                      workspace=workspace, reducer=red)
     del guidance           # the trainer holds it (its CLIP tower on the host)
-    clip_encoder = load_clip_encoder(config, device, log)
+    clip_encoder = load_clip_encoder(config, device, log) if rank0 else None
 
     # resume from the newest workspace checkpoint unless told otherwise
     # (preemption recovery; the reference only writes a final ckpt)
@@ -208,14 +247,18 @@ def _run(config, device, workspace, log):
             log(f"Resumed from {ckpt_path} (epoch {trainer.epoch})")
 
     mesh_dir = os.path.join(workspace, "mesh")
+    max_epochs = config["train"]["n_epochs"]
+    exp = config["exp"]
+    if not rank0:
+        _epoch_loop(trainer, dataset, log, workspace, mesh_dir, clip_encoder,
+                    max_epochs, exp)
+        return
     info = mesh_export.export_mesh(trainer.field,
                                    os.path.join(mesh_dir, "init.ply"),
                                    resolution=MESH_RES, cano=True)[2]
     log("Exported init mesh")
     log("mesh-export " + json.dumps(info))
 
-    max_epochs = config["train"]["n_epochs"]
-    exp = config["exp"]
     # crash-resume repair: any eval epoch whose metric_3d.txt row was lost
     # to a mid-eval kill is re-evaluated from its on-disk meshes by a
     # detached worker before training continues
@@ -288,8 +331,11 @@ def _epoch_loop(trainer, dataset, log, workspace, mesh_dir, clip_encoder,
         if epoch % mai == 0 or epoch == max_epochs or (ci and epoch % ci == 0):
             _, stats["ckpt_s"] = timed(trainer.save_ckpt, os.path.join(
                 workspace, "models", f"model_ep_{epoch:04d}.pkl"))
-            if ci and epoch % mai != 0 and epoch != max_epochs:
+            if ci and epoch % mai != 0 and epoch != max_epochs \
+                    and trainer.dp.rank == 0:
                 _prune_dense_ckpts(workspace, ci, mai, max_epochs)
+        if trainer.dp.rank != 0:
+            continue        # rank 0 alone writes the diagnostics
 
         if epoch % exp["test_interval"] == 0 or epoch == max_epochs:
             results = os.path.join(workspace, "results")

@@ -150,7 +150,8 @@ DEFAULTS: dict[str, dict[str, Any]] = {
         "vjp_mode": "hist_rows",     # hash-grid embedding-cotangent route
                                      # (ops/hashgrid.VJP_MODES)
         "mesh_chunk": 2097152,
-        "data_parallel": 1,          # port: 1 only
+        "data_parallel": 1,          # ranks training one scene
+                                     # (parallel/sharding.py)
         "chain_steps": True,         # TPU dispatch only; ignored
         "remat_virtual": True,       # TPU dispatch only; ignored
         "donate_state": True,        # TPU dispatch only; ignored

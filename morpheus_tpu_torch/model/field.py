@@ -391,7 +391,8 @@ class Field(nn.Module):
             sdf, geo_feat = self.sdf_head(x_all, enc_sdf, topo_all, max_level)
             n_raw = torch.autograd.grad(sdf.sum(), x_all, create_graph=True)[0]
         n_extra = None
-        if E:
+        if extra_x is not None:
+            # (0, 3) for no sites: a rank may hold none of a selection
             n_extra = torch.nan_to_num(safe_normalize(n_raw[B:]))
             sdf, geo_feat, n_raw = sdf[:B], geo_feat[:B], n_raw[:B]
             if enc_col is not None:

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.sharding import LOCAL
 from . import volrender
 
 
@@ -176,13 +177,22 @@ def march_rays(draws, state: OccupancyState, rays_o: torch.Tensor,
     return t_starts, t_ends, mask, torch.gather(score, 1, idx)
 
 
-def compact_samples(t_starts, t_ends, mask, score, budget: int) -> dict:
+def compact_samples(t_starts, t_ends, mask, score, budget: int,
+                    rays=None) -> dict:
     """Keep the top-`budget` samples of the (N, K) grid by march score, as a
     flat ray-sorted stream: ray_id (B,) nondecreasing, t_starts/t_ends (B,),
-    valid (B,), starts (N+1,) segment boundaries."""
+    valid (B,), starts (N+1,) segment boundaries, and `rows`, the stream's
+    place in the global one. `rays` (parallel.sharding.Rows; None: one
+    process) places the N rays in the global batch: the top-k runs over the
+    whole batch's scores and this rank keeps its own rays' samples, a
+    contiguous run of the global stream."""
     N, K = mask.shape
-    flat_score = torch.where(mask, score, -torch.inf).reshape(-1)
-    perm = torch.sort(top_k_indices(flat_score, int(budget))).values
+    if rays is None:
+        rays = LOCAL.rows(N)
+    flat_score = rays.gather(torch.where(mask, score, -torch.inf))
+    perm = torch.sort(top_k_indices(flat_score.reshape(-1),
+                                    int(budget))).values
+    perm, rows = rays.split_sorted(perm, K)
     ray_id = torch.div(perm, K, rounding_mode="floor")
     return {
         "ray_id": ray_id,
@@ -190,4 +200,5 @@ def compact_samples(t_starts, t_ends, mask, score, budget: int) -> dict:
         "t_ends": t_ends.reshape(-1).index_select(0, perm),
         "valid": mask.reshape(-1).index_select(0, perm),
         "starts": volrender.segment_starts(ray_id, N),
+        "rows": rows,
     }

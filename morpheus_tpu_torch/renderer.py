@@ -23,6 +23,7 @@ import torch
 
 from .model.field import SHADING_ALBEDO, Field
 from .ops import occupancy, volrender
+from .parallel.sharding import LOCAL, Reducer
 from .train import losses
 from .utils import safe_normalize
 
@@ -97,14 +98,17 @@ def _take(x: torch.Tensor, i: torch.Tensor | None) -> torch.Tensor:
     return x if i is None else x.index_select(0, i)
 
 
-def _subset_sel(draws, name: str, mask: torch.Tensor, budget: int):
+def _subset_sel(draws, name: str, mask: torch.Tensor, budget: int, rows):
     """A uniform random subset of `budget` of the entries where mask is set
-    (random score, top-k); None when the budget keeps everything."""
-    B = mask.shape[0]
+    (random score, top-k), taken over the global index space of `rows`
+    (sharding.Rows: mask holds this rank's entries): (this rank's members,
+    their Rows in the subset), or (None, rows) when the budget keeps
+    everything."""
+    B = rows.total
     if not budget or budget >= B:
-        return None
-    score = torch.where(mask, draws.uniform(name, (B,)), -1.0)
-    return occupancy.top_k_indices(score, budget)
+        return None, rows
+    score = torch.where(rows.gather(mask), draws.uniform(name, (B,)), -1.0)
+    return rows.select(occupancy.top_k_indices(score, budget))
 
 
 def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
@@ -112,32 +116,41 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
                 ambient_ratio=1.0, shading_id: int = SHADING_ALBEDO,
                 real_view: bool = True, cano: bool = False, rays_depth=None,
                 rays_mask=None, optimize_pose: bool = False, max_level=None,
-                train: bool = True) -> dict:
+                train: bool = True, red: Reducer = LOCAL) -> dict:
     """Render N rays; all array arguments are (N, ...). cano renders the
     canonical field (no deformation, no pose correction, no code
     smoothness); bg_color None is the background net for a canonical
-    virtual view when the model has one (bg_radius > 0), white otherwise."""
+    virtual view when the model has one (bg_radius > 0), white otherwise.
+    Under a process group (red) the N rays are this rank's rows of a global
+    batch of N*world: the draws, the budgets and the selections are the
+    global batch's, and each loss term is this rank's share of it
+    (parallel/sharding.py)."""
     N = rays_o.shape[0]
     K = rcfg.max_samples
+    rays = red.rows(N)
+    n_rays = rays.total
 
     if not cano and optimize_pose:
         rays_o, rays_d = field.pose_optimisation(rays_o, rays_d, rays_id)
 
     t_starts, t_ends, mask, score = occupancy.march_rays(
-        draws, occ_state, rays_o, rays_d, rcfg.bound, rcfg.step_size,
-        rcfg.march_steps, rcfg.max_samples,
+        rays.draws(draws), occ_state, rays_o, rays_d, rcfg.bound,
+        rcfg.step_size, rcfg.march_steps, rcfg.max_samples,
         score_uniform_mix=rcfg.budget_uniform_mix,
         occ_threshold=rcfg.occ_threshold)
 
-    budget = rcfg.sample_budget * N
-    if budget and budget < N * K:
-        cs = occupancy.compact_samples(t_starts, t_ends, mask, score, budget)
+    budget = rcfg.sample_budget * n_rays
+    if budget and budget < n_rays * K:
+        cs = occupancy.compact_samples(t_starts, t_ends, mask, score, budget,
+                                       rays)
     else:
         ray_id = torch.arange(N, device=rays_o.device).repeat_interleave(K)
         cs = {"ray_id": ray_id, "t_starts": t_starts.reshape(-1),
               "t_ends": t_ends.reshape(-1), "valid": mask.reshape(-1),
-              "starts": torch.arange(N + 1, device=rays_o.device) * K}
+              "starts": torch.arange(N + 1, device=rays_o.device) * K,
+              "rows": rays.scaled(K)}
     ray_id, valid = cs["ray_id"], cs["valid"]
+    stream = cs["rows"]           # the samples' places in the global stream
     seg = volrender.Segments(ray_id, cs["starts"], K)
 
     light_d = safe_normalize(rays_o + draws.normal("light", (3,)))
@@ -157,10 +170,10 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
                     and field.spec.normal_mode == "analytic")
     s_sel = xp = n_p = None
     if merge_smooth:
-        s_sel = _subset_sel(draws, "smooth_sel", valid,
-                            rcfg.smooth_budget * N)
+        s_sel, s_rows = _subset_sel(draws, "smooth_sel", valid,
+                                    rcfg.smooth_budget * n_rays, stream)
         x_s = _take(x_flat, s_sel)
-        xp = x_s + draws.normal("perturb", tuple(x_s.shape)) \
+        xp = x_s + s_rows.draws(draws).normal("perturb", tuple(x_s.shape)) \
             * rcfg.smoothness_std
         sdf, sigmas, rgbs, normals, deform, normal_raw, n_p = field(
             x_flat, t_flat, light_d=light_flat, ratio=ambient_ratio,
@@ -192,44 +205,47 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
 
     def masked_mean(x):
         m = valid[:, None].expand(x.shape)
-        return torch.where(m, x, 0.0).sum() / (m.sum() + 1e-8)
+        return torch.where(m, x, 0.0).sum() / (red.total(m.sum()) + 1e-8)
 
     if rcfg.compute_normals and normals is not None:
         out["loss_orient"] = losses.orientation_loss_flat(
-            weights.detach(), normals, _take(dirs_unit, ray_id), valid, N)
+            weights.detach(), normals, _take(dirs_unit, ray_id), valid,
+            n_rays)
         if rcfg.normal_smooth_3d:
             # canonical-space normals at perturbed sites (morpheus.py:
             # 714-741), on a uniform subset of the valid samples under
             # smooth_budget (an unbiased estimate of the same mean)
             if not merge_smooth:
-                s_sel = _subset_sel(draws, "smooth_sel", valid,
-                                    rcfg.smooth_budget * N)
+                s_sel, s_rows = _subset_sel(draws, "smooth_sel", valid,
+                                            rcfg.smooth_budget * n_rays,
+                                            stream)
+            s_draws = s_rows.draws(draws)
             x_s, t_s, n_s, v_s = (_take(a, s_sel) for a in (
                 x_flat, t_flat, normals, valid))
             d_s = None if deform is None else _take(deform, s_sel)
             if not merge_smooth:
                 if rcfg.normal_dir:
-                    xp = x_s + _ortho_normal_dir(draws.uniform(
+                    xp = x_s + _ortho_normal_dir(s_draws.uniform(
                         "perturb_phase", (x_s.shape[0], 1)), n_s) \
                         * rcfg.smoothness_std
                 else:
-                    xp = x_s + draws.normal("perturb", tuple(x_s.shape)) \
+                    xp = x_s + s_draws.normal("perturb", tuple(x_s.shape)) \
                         * rcfg.smoothness_std
                 topo_p = (None if rcfg.topo_none
                           else field.get_topo(xp, t_s, max_level))
                 n_p, _ = field.normal(xp, topo=topo_p, cano=True,
                                       max_level=max_level)
-            out["loss_normal_perturb"] = losses.normal_perturb_loss(n_s, n_p,
-                                                                    v_s)
+            out["loss_normal_perturb"] = losses.normal_perturb_loss(
+                n_s, n_p, v_s, red)
             if rcfg.normal_smooth_3d_t:
                 # normals under the topo of a perturbed time
                 # (morpheus.py:743-748)
-                t_jit = t_s + draws.uniform("t_perturb_3d", tuple(
+                t_jit = t_s + s_draws.uniform("t_perturb_3d", tuple(
                     t_s.shape)) / rcfg.num_frames
                 n_t, _ = field.normal(x_s, topo=field.get_topo(
                     x_s, t_jit, max_level), cano=True, max_level=max_level)
                 out["loss_normal_perturb_t"] = losses.normal_perturb_loss(
-                    n_s, n_t, v_s)
+                    n_s, n_t, v_s, red)
             if rcfg.deform_smooth and not cano and d_s is not None:
                 # the deformation at the perturbed points (morpheus.py:
                 # 750-754)
@@ -237,9 +253,10 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
                 m_s = v_s[:, None].expand(d_s.shape)
                 out["loss_deform_perturb"] = (
                     torch.where(m_s, torch.abs(d_s - deform_p), 0.0).sum()
-                    / (m_s.sum() + 1e-8))
+                    / (red.total(m_s.sum()) + 1e-8))
         if normal_raw is not None:
-            out["normal_raw_eik"] = losses.eikonal_loss(normal_raw, valid)
+            out["normal_raw_eik"] = losses.eikonal_loss(normal_raw, valid,
+                                                        red)
         if rcfg.normal_smooth_2d and not real_view:
             # the rendered normal image of the 2-D smoothness
             # (morpheus.py:773-776)
@@ -249,7 +266,7 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
     if (rcfg.deform_smooth_t or rcfg.topo_smooth_t) and not cano \
             and deform is not None:
         # deformation and topo under a perturbed time (morpheus.py:756-760)
-        t_jit = t_flat + draws.uniform("t_perturb", tuple(
+        t_jit = t_flat + stream.draws(draws).uniform("t_perturb", tuple(
             t_flat.shape)) / rcfg.num_frames
         _, topo0 = field.warp(x_flat, t_flat, max_level)
         deform_t, topo_t = field.warp(x_flat, t_jit, max_level)
@@ -270,15 +287,17 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
         if rcfg.band_reuse and rcfg.band_budget and normals is not None:
             out["normal_reg"] = _band_reuse_normal_smoothness(
                 field, draws, x_flat, t_flat, normals, valid, t_mid, depth,
-                ray_id, rcfg, max_level)
+                ray_id, rcfg, max_level, stream, n_rays)
         else:
             out["normal_reg"] = _surface_band_normal_smoothness(
-                field, draws, rays_o, rays_d, rays_t, depth, rcfg, max_level)
+                field, draws, rays_o, rays_d, rays_t, depth, rcfg, max_level,
+                rays)
 
     if rays_depth is not None:
         fs_loss, sdf_loss = losses.sdf_losses_flat(
             t_mid, rays_depth.reshape(-1), sdf, rcfg.trunc, valid, seg,
-            ray_mask=rays_mask.reshape(-1) if rays_mask is not None else None)
+            ray_mask=rays_mask.reshape(-1) if rays_mask is not None else None,
+            red=red)
         out["fs_loss"] = fs_loss
         out["sdf_loss"] = sdf_loss
 
@@ -302,23 +321,27 @@ def _ortho_normal_dir(phase: torch.Tensor, normals: torch.Tensor):
 
 def _band_reuse_normal_smoothness(field: Field, draws, x_flat, t_flat,
                                   normals, valid, t_mid, depth, ray_id,
-                                  rcfg: RenderConfig, max_level):
+                                  rcfg: RenderConfig, max_level, stream,
+                                  n_rays: int):
     """Surface-band normal smoothness: the first normal is reused from the
     render samples within trunc/2 of the rendered depth (inside the
-    outside_radius filter, budgeted to band_budget*N sites); only the
+    outside_radius filter, budgeted to band_budget*N sites of the n_rays
+    of the global batch; `stream`: the samples' Rows); only the
     ortho-perturbed second normal is evaluated (an sdf-only encode)."""
     depth_r = depth.detach()[ray_id]
     in_band = (valid & (torch.abs(t_mid - depth_r) < 0.5 * rcfg.trunc)
                & (torch.linalg.norm(x_flat, dim=-1) < rcfg.outside_radius))
-    N = depth.shape[0]
-    sel = _subset_sel(draws, "band_sel", in_band, rcfg.band_budget * N)
+    sel, b_rows = _subset_sel(draws, "band_sel", in_band,
+                              rcfg.band_budget * n_rays, stream)
     x_b, t_b, n1, m_b = (_take(a, sel) for a in (x_flat, t_flat, normals,
                                                    in_band))
-    w = _ortho_normal_dir(draws.uniform("band_phase", (n1.shape[0], 1)), n1)
+    w = _ortho_normal_dir(b_rows.draws(draws).uniform(
+        "band_phase", (n1.shape[0], 1)), n1)
     n2, _ = field.normal(x_b + w * rcfg.smoothness_std, t=t_b,
                          max_level=max_level)
     sq = ((n1 - n2) ** 2).sum(-1) / 3.0
-    return torch.where(m_b, sq, 0.0).sum() / (m_b.sum() + 1e-8)
+    return (torch.where(m_b, sq, 0.0).sum()
+            / (stream.red.total(m_b.sum()) + 1e-8))
 
 
 @functools.lru_cache(maxsize=8)
@@ -331,7 +354,7 @@ def _ladder(trunc: float, P: int, device) -> torch.Tensor:
 
 def _surface_band_normal_smoothness(field: Field, draws, rays_o, rays_d,
                                     rays_t, depth, rcfg: RenderConfig,
-                                    max_level):
+                                    max_level, rays):
     """The reference's surface-band normal smoothness (morpheus.py:530-556,
     JAX renderer.py:417-457): a ladder of P = trunc*100+1 points a ray,
     spaced over [-trunc/2, trunc/2] around the detached rendered depth and
@@ -341,21 +364,23 @@ def _surface_band_normal_smoothness(field: Field, draws, rays_o, rays_d,
     masked out (the reference drops them); under band_budget a random
     band_budget*N of the in-band points are evaluated (top-k of a random
     score, exact where the JAX package's approx_max_k is exact on the
-    CPU)."""
+    CPU), N the global batch's rays (`rays`: this rank's Rows of them)."""
     P = int(rcfg.trunc * 100 + 1)
-    N = depth.shape[0]
     ladder = _ladder(rcfg.trunc, P, depth.device) \
         + 0.01 * draws.uniform("ladder_jitter", (P,))
     pts = ((depth.detach()[None, :] + ladder[:, None])[..., None]
            * rays_d[None] + rays_o[None]).reshape(-1, 3)         # (P*N, 3)
     ts = rays_t[None].expand((P,) + tuple(rays_t.shape)).reshape(-1, 1)
     in_band = torch.linalg.norm(pts, dim=-1) < rcfg.outside_radius
-    sel = _subset_sel(draws, "ladder_sel", in_band, rcfg.band_budget * N)
+    sel, l_rows = _subset_sel(draws, "ladder_sel", in_band,
+                              rcfg.band_budget * rays.total,
+                              rays.repeated(P, depth.device))
     pts, ts, in_band = (_take(a, sel) for a in (pts, ts, in_band))
     n1, _ = field.normal(pts, t=ts, max_level=max_level)
-    w = _ortho_normal_dir(draws.uniform("ladder_phase", (n1.shape[0], 1)),
-                          n1)
+    w = _ortho_normal_dir(l_rows.draws(draws).uniform(
+        "ladder_phase", (n1.shape[0], 1)), n1)
     n2, _ = field.normal(pts + w * rcfg.smoothness_std, t=ts,
                          max_level=max_level)
     sq = ((n1 - n2) ** 2).sum(-1) / 3.0
-    return torch.where(in_band, sq, 0.0).sum() / (in_band.sum() + 1e-8)
+    return (torch.where(in_band, sq, 0.0).sum()
+            / (rays.red.total(in_band.sum()) + 1e-8))

@@ -1,19 +1,25 @@
 """Loss terms of the training steps (port of morpheus_tpu/train/losses.py:
 the flat-stream losses the renderer uses, and the dense (N, K) sdf_losses
-and orientation_loss)."""
+and orientation_loss).
+
+Under a process group (`red`, parallel.sharding.Reducer) a term's inputs
+are this rank's share of the global batch, and it returns its share of the
+global term: the local numerator over the global denominator."""
 from __future__ import annotations
 
 import torch
 
 from ..ops import volrender
+from ..parallel.sharding import LOCAL, Reducer
 
 
-def _masked_mean(x, mask, eps=1e-8):
-    return torch.where(mask, x, 0.0).sum() / (mask.sum() + eps)
+def _masked_mean(x, mask, eps=1e-8, red: Reducer = LOCAL):
+    return torch.where(mask, x, 0.0).sum() / (red.total(mask.sum()) + eps)
 
 
 def sdf_losses_flat(t_mid, target_d, predicted_sdf, truncation, valid,
-                    seg: volrender.Segments, ray_mask=None):
+                    seg: volrender.Segments, ray_mask=None,
+                    red: Reducer = LOCAL):
     """TSDF free-space and truncation-band SDF losses on a flat ray-sorted
     stream (reference utils.py:91-113). t_mid/predicted_sdf/valid: (B,);
     target_d, ray_mask: (N,). Returns (fs_loss, sdf_loss)."""
@@ -33,7 +39,7 @@ def sdf_losses_flat(t_mid, target_d, predicted_sdf, truncation, valid,
 
     sum_of_samples = (per_ray_sum(front_mask.float())
                       + per_ray_sum(sdf_mask.float()) + 1e-8)
-    rays_w_depth = torch.count_nonzero(target_d) + 1e-8
+    rays_w_depth = red.total(torch.count_nonzero(target_d)) + 1e-8
 
     fs = torch.clamp(torch.maximum(torch.exp(-5.0 * predicted_sdf) - 1.0,
                                    predicted_sdf - bound), min=0.0)
@@ -89,44 +95,46 @@ def orientation_loss_flat(weights, normals, dirs, valid, num_rays):
     return term.sum() / num_rays
 
 
-def rgb_loss(pred_rgb, gt_rgb):
-    return ((pred_rgb - gt_rgb) ** 2).mean()
+def rgb_loss(pred_rgb, gt_rgb, red: Reducer = LOCAL):
+    return red.mean((pred_rgb - gt_rgb) ** 2)
 
 
-def mask_loss(pred_opacity, gt_mask):
+def mask_loss(pred_opacity, gt_mask, red: Reducer = LOCAL):
     """BCE on accumulated opacity (morpheus.py:958-960)."""
     p = torch.clamp(pred_opacity, 1e-5, 1.0 - 1e-5)
-    return -(gt_mask * torch.log(p) + (1.0 - gt_mask) * torch.log(1.0 - p)).mean()
+    return -red.mean(gt_mask * torch.log(p)
+                     + (1.0 - gt_mask) * torch.log(1.0 - p))
 
 
 def depth_loss(pred_depth, gt_depth, rays_o, rays_d, gt_mask,
-               outside_radius: float = 1.1):
+               outside_radius: float = 1.1, red: Reducer = LOCAL):
     """Masked depth MSE with outlier rejection (morpheus.py:963-981)."""
     xyzs = rays_o + gt_depth[..., None] * rays_d
     pts_norm = torch.linalg.norm(xyzs, dim=-1)
     valid = (gt_depth > 0) & (pts_norm <= outside_radius) & (gt_mask > 0.5)
-    return ((torch.where(valid, pred_depth, 0.0)
-             - torch.where(valid, gt_depth, 0.0)) ** 2).mean()
+    return red.mean((torch.where(valid, pred_depth, 0.0)
+                     - torch.where(valid, gt_depth, 0.0)) ** 2)
 
 
-def entropy_loss(weights, mask):
+def entropy_loss(weights, mask, red: Reducer = LOCAL):
     a = torch.clamp(weights, 1e-5, 1 - 1e-5)
     ent = -a * torch.log2(a) - (1 - a) * torch.log2(1 - a)
-    return _masked_mean(ent, mask)
+    return _masked_mean(ent, mask, red=red)
 
 
-def eikonal_loss(normal_raw, mask=None):
+def eikonal_loss(normal_raw, mask=None, red: Reducer = LOCAL):
     err = (torch.linalg.norm(normal_raw, dim=-1) - 1.0) ** 2
     if mask is None:
-        return err.mean()
-    return _masked_mean(err, mask)
+        return red.mean(err)
+    return _masked_mean(err, mask, red=red)
 
 
-def normal_perturb_loss(normals, normals_perturb, mask=None):
+def normal_perturb_loss(normals, normals_perturb, mask=None,
+                        red: Reducer = LOCAL):
     d = torch.abs(normals - normals_perturb)
     if mask is None:
-        return d.mean()
-    return _masked_mean(d, mask[..., None].expand(d.shape))
+        return red.mean(d)
+    return _masked_mean(d, mask[..., None].expand(d.shape), red=red)
 
 
 def code_smoothness(code, code_prev, code_next):

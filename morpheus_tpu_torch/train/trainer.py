@@ -18,9 +18,19 @@ frozen
 which the next real step folds in. Neither step synchronises with the
 host; the epoch loop reads the loss once at its end.
 
+Under tpu.data_parallel N the trainer is one of N ranks of a process
+group (parallel/sharding.py; the port of trainer.py:114-130 and
+_train_one_epoch_dp, :740-848, of the JAX package): every rank holds the
+same state; a real step draws the global batch on the host
+(sharding.host_sample_real_batch, from a numpy generator as the JAX copy
+does), renders its own rows and sums the gradients of its share of the
+global loss over the ranks; a virtual step renders one view a rank and
+averages. The single-device trainer is the same code with no process group.
+
 A checkpoint (save_ckpt, load_ckpt: the port of morpheus_tpu/train/
 trainer.py:919-955) is a pickle of plain dicts, lists, numpy arrays and
-numbers, so that reading it needs no class of either package.
+numbers, so that reading it needs no class of either package; under data
+parallelism rank 0 writes it and every rank reads it.
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ from ..model.field import (SHADING_ALBEDO, SHADING_LAMBERTIAN,
 from ..ops import density as density_lib
 from ..ops import occupancy
 from ..ops.hashgrid import HashGridSpec, active_count
+from ..parallel import sharding
 from ..utils import Draws, resolve_device
 from . import losses, optim
 from .schedule import Curriculum
@@ -94,18 +105,20 @@ class Trainer:
     def __init__(self, config: dict, dataset: data_lib.DeformDataset,
                  device="cuda", seed: int | None = None,
                  draws: Draws | None = None, guidance=None,
-                 workspace: str | None = None):
+                 workspace: str | None = None,
+                 reducer: sharding.Reducer | None = None):
         """guidance: a guidance.zero123.Zero123Guidance on `device` (SDS
         virtual steps); None trains recon-only, its virtual slots running
-        real steps as the reference's do."""
+        real steps as the reference's do. reducer: this rank's process
+        group (sharding.Reducer); by default the one tpu.data_parallel
+        asks for (sharding.Reducer.for_config: none for 1)."""
         from ..guidance.zero123 import Zero123Guidance
         if guidance is not None and not isinstance(guidance, Zero123Guidance):
             raise TypeError(f"guidance: a Zero123Guidance, not "
                             f"{type(guidance).__name__}")
-        if int(config["tpu"].get("data_parallel", 1)) > 1:
-            raise NotImplementedError(
-                "tpu.data_parallel > 1 is not ported yet (ROADMAP.md queue A, "
-                "item A12)")
+        self.dp = (sharding.Reducer.for_config(config) if reducer is None
+                   else reducer)
+        sharding.check_rays(config, self.dp.world)
         self.config = config
         self.dataset = dataset
         self.workspace = workspace or os.path.join(config["exp"]["output"],
@@ -144,10 +157,20 @@ class Trainer:
         self.occ_interp = tpu.get("occ_query_interp", "nearest")
         self.data = dataset.device_data(self.device,
                                         scale=config["data"]["known_view_scale"])
+        if self.dp.active:
+            # the real batches are drawn on the host, from a numpy
+            # generator of the seed (trainer.py:130 of the JAX package; it
+            # is not in the checkpoint there either)
+            self.host_data = {
+                k: v.numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in dataset.device_data(
+                    "cpu", scale=config["data"]["known_view_scale"]).items()}
+            self._np_rng = np.random.default_rng(int(seed))
 
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         self.field = Field(self.spec, self.device).reset_parameters(gen)
+        self.dp.broadcast(list(self.field.parameters()))
         self._reset_state()
         self.occ = occupancy.init_occupancy(tpu["occ_resolution"], self.device)
         self.global_step = 0
@@ -252,9 +275,22 @@ class Trainer:
 
     # ---- losses ----
 
-    def _real_loss(self, occ, draws, epoch, max_level):
-        """Real-view loss on a freshly drawn ray batch."""
+    def _real_batch(self, draws):
+        """A fresh real-view ray batch and its background: (batch,
+        bg_color). Under a process group, this rank's rows of the global
+        batch drawn on the host (sharding.host_sample_real_batch; the JAX
+        copy's data-parallel batch has no real_view_noise)."""
         tr = self.config["train"]
+        if self.dp.active:
+            batch, bg = sharding.host_sample_real_batch(
+                self._np_rng, self.host_data, self.dataset.num_frames,
+                tr["real_ray_num"])
+            batch["bg"] = bg
+            batch = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in sharding.shard_rows(
+                         batch, self.dp.rank, self.dp.world).items()}
+            batch["rays_id"] = batch["rays_id"].long()
+            return batch, batch.pop("bg")
         batch = data_lib.sample_real_view_rays(
             draws, self.data, self.dataset.num_frames, tr["real_ray_num"])
         if tr["real_view_noise"] > 0:
@@ -265,22 +301,30 @@ class Trainer:
             batch["rays_d"] = batch["rays_d"] + draws.normal(
                 "noise_d", (3,)) * tr["real_view_noise"]
         N = batch["rays_o"].shape[0]
-        bg_color = draws.uniform("bg", (N, 3))
+        return batch, draws.uniform("bg", (N, 3))
+
+    def _real_loss(self, occ, draws, epoch, max_level):
+        """Real-view loss on a freshly drawn ray batch."""
+        batch, bg_color = self._real_batch(draws)
         return self.real_loss_from_batch(occ, draws, epoch, max_level, batch,
                                          bg_color)
 
     def real_loss_from_batch(self, occ, draws, epoch, max_level, batch,
                              bg_color):
-        """Weighted real-view loss of an explicit ray batch; (loss, out)."""
+        """Weighted real-view loss of an explicit ray batch; (loss, out).
+        Under a process group the batch is this rank's rows of the global
+        batch and the loss this rank's share of the global loss: the sum
+        over the ranks is the loss of the global batch."""
         field = self.step_field
         tr = self.config["train"]
+        red = self.dp
         N = batch["rays_o"].shape[0]
         out = renderer.render_rays(
             field, occ, draws, batch["rays_o"], batch["rays_d"],
             batch["rays_t"], batch["rays_id"], self.rcfg, bg_color=bg_color,
             ambient_ratio=1.0, shading_id=SHADING_LAMBERTIAN,
             rays_depth=batch["depth"], rays_mask=batch["mask"],
-            optimize_pose=True, max_level=max_level, train=True)
+            optimize_pose=True, max_level=max_level, train=True, red=red)
 
         gt_mask = (batch["mask"] > 0.5).float()
         gt_rgb = (batch["image"] * gt_mask[:, None]
@@ -288,20 +332,20 @@ class Trainer:
         gt_depth = batch["depth"]
         ori_w, rgb_w, beta_w = self.curr.loss_weights(epoch)
 
-        loss = rgb_w * losses.rgb_loss(out["image"], gt_rgb)
+        loss = rgb_w * losses.rgb_loss(out["image"], gt_rgb, red)
         if tr["mask_weight"] > 0:
-            loss = loss + tr["mask_weight"] * losses.mask_loss(out["opacity"],
-                                                               gt_mask)
+            loss = loss + tr["mask_weight"] * losses.mask_loss(
+                out["opacity"], gt_mask, red)
         if tr["depth_weight"] > 0:
             loss = loss + tr["depth_weight"] * losses.depth_loss(
                 out["depth"], gt_depth, batch["rays_o"], batch["rays_d"],
-                gt_mask)
+                gt_mask, red=red)
         if tr["sdf_weight"] > 0:
             loss = loss + tr["sdf_weight"] * out["sdf_loss"]
         if tr["sdf_reg"] > 0:
             m = out["mask"].float()
             loss = loss + tr["sdf_reg"] * ((out["sdf"] ** 2 * m).sum()
-                                           / (m.sum() + 1e-8))
+                                           / (red.total(m.sum()) + 1e-8))
         if tr["fs_weight"] > 0:
             loss = loss + tr["fs_weight"] * out["fs_loss"]
 
@@ -313,20 +357,24 @@ class Trainer:
                   & (gt_mask > 0.5))
             res = field.query_density(xyzs, t=batch["rays_t"],
                                       max_level=max_level)
-            n_valid = dm.sum() + 1e-8
+            n_valid = red.total(dm.sum()) + 1e-8
             surf_sdf = torch.where(dm, res["sdf"] ** 2, 0.0).sum() / n_valid
             cerr = ((res["albedo"] - gt_rgb) ** 2).sum(-1) / 3.0
-            surf_color = torch.where(dm, cerr, 0.0).sum() / N
+            surf_color = torch.where(dm, cerr, 0.0).sum() / (N * red.world)
             loss = loss + tr["surf_sdf_weight"] * surf_sdf
             loss = loss + tr["surf_color_weight"] * surf_color
 
-        loss = loss + self._reg_loss(out, ori_w, beta_w)
+        loss = loss + self._reg_loss(out, ori_w, beta_w, red)
         return loss, out
 
-    def _reg_loss(self, out, ori_w, beta_w):
-        """Shared regularizers (morpheus.py:1090-1145)."""
+    def _reg_loss(self, out, ori_w, beta_w, red=sharding.LOCAL):
+        """Shared regularizers (morpheus.py:1090-1145). Under a process
+        group (red) the terms of the parameters alone - beta's and the
+        deformation codes' - are rank 0's alone."""
         tr = self.config["train"]
-        loss = beta_w * density_lib.laplace_beta(self.field.beta)
+        rank0 = red.rank == 0
+        loss = beta_w * density_lib.laplace_beta(self.field.beta) if rank0 \
+            else 0.0
         if "loss_orient" in out:
             loss = loss + ori_w * out["loss_orient"]
         for w, key in (("normal_smooth_3d", "loss_normal_perturb"),
@@ -342,11 +390,11 @@ class Trainer:
             loss = loss + tr["normal_smoothness"] * out["normal_reg"]
         if tr["deform_weight"] > 0 and "deform_abs" in out:
             loss = loss + tr["deform_weight"] * out["deform_abs"]
-        if tr["code_reg"] > 0 and "loss_code" in out:
+        if tr["code_reg"] > 0 and "loss_code" in out and rank0:
             loss = loss + tr["code_reg"] * out["loss_code"]
         if tr["entropy_weight"] > 0:
             loss = loss + tr["entropy_weight"] * losses.entropy_loss(
-                out["weights"], out["mask"])
+                out["weights"], out["mask"], red)
         return loss
 
     # ---- Zero123 SDS virtual step ----
@@ -542,16 +590,24 @@ class Trainer:
 
     # ---- steps ----
 
-    def real_step(self, epoch) -> torch.Tensor:
-        """One real-view optimizer step; returns the loss (on the device)."""
+    def real_step(self, epoch, batch=None, bg_color=None) -> torch.Tensor:
+        """One real-view optimizer step, on a fresh batch or on `batch` and
+        `bg_color` (this rank's rows under a process group); returns the
+        loss (on the device; of the global batch under a process group,
+        whose gradients are summed over the ranks before the carried
+        virtual-step gradients, already reduced, are added)."""
         draws = self.draws
         step = self.global_step
         lr = self.curr.learning_rate(epoch)
         max_level = self.curr.max_level(epoch)
         t_occ = draws.uniform("t_occ", ())
         self.occ = self._maybe_update_occ(self.occ, step, t_occ, draws)
-        loss, _ = self._real_loss(self.occ, draws, epoch, max_level)
-        grads = self._grads(loss)
+        if batch is None:
+            batch, bg_color = self._real_batch(draws)
+        loss, _ = self.real_loss_from_batch(self.occ, draws, epoch,
+                                            max_level, batch, bg_color)
+        grads, loss = self.dp.reduce_grads(self._grads(loss), loss,
+                                           mean=False)
         if self._pending_live:
             # fold in the carried virtual-step gradients (trainer.py:416-418
             # of the JAX package); a non-finite sum skips the update and the
@@ -576,16 +632,19 @@ class Trainer:
         FREEZE_GROUPS at
         rate 0 (and the carried gradients are cleared), after it they are
         added to the carried gradients (trainer.py:625-672 of the JAX
-        package)."""
+        package). Under a process group each rank renders its own view
+        (sharding.ViewDraws) and the loss and the gradients are the mean
+        over the views (sharding.py:142-238 of the JAX package)."""
         draws = self.draws
         step = self.global_step
         lr = self.curr.learning_rate(epoch)
         max_level = self.curr.max_level(epoch)
         t_occ = draws.uniform("t_occ", ())
         self.occ = self._maybe_update_occ(self.occ, step, t_occ, draws)
-        loss, out = self._virtual_loss(self.occ, draws, epoch, max_level,
-                                       sampler)
-        grads = self._grads(loss)
+        loss, out = self._virtual_loss(self.occ, self.dp.view_draws(draws),
+                                       epoch, max_level, sampler)
+        grads, loss = self.dp.reduce_grads(self._grads(loss), loss,
+                                           mean=True)
         torch._foreach_div_(grads, float(self.config["train"]["virtual_freq"]))
         found = torch.zeros((), device=self.device)
         torch._amp_foreach_non_finite_check_and_unscale_(
@@ -606,7 +665,9 @@ class Trainer:
 
     def train_one_epoch(self, n_iters: int | None = None) -> float:
         """n_iters x (virtual_freq virtual slots + real_freq real steps),
-        then the EMA (trainer.py:850-907 of the JAX package). A virtual slot
+        then the EMA (trainer.py:850-907 of the JAX package, and its
+        data-parallel twin _train_one_epoch_dp, :740-848: the same slots,
+        with rank 0's guidance panels alone). A virtual slot
         runs an SDS step when there is guidance and the host step has
         passed warm_up_steps, a real step otherwise, as the reference's
         does."""
@@ -622,6 +683,7 @@ class Trainer:
                         and self.host_step >= tr["warm_up_steps"]:
                     loss, diag = self.virtual_step(self.epoch, sampler)
                     if (exp["save_guidance"] and diag and self.workspace
+                            and self.dp.rank == 0
                             and self.host_step % exp["save_guide_intervel"]
                             == 0):
                         self.save_guidance_panels(diag, self.host_step)
@@ -711,12 +773,15 @@ class Trainer:
 
     def save_ckpt(self, path: str) -> None:
         """Write state_dict() to `path` atomically (a .tmp file, then
-        os.replace), as morpheus_tpu/train/trainer.py:921-934 does."""
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            pickle.dump(self.state_dict(), f)
-        os.replace(tmp, path)
+        os.replace), as morpheus_tpu/train/trainer.py:921-934 does; under a
+        process group rank 0 writes and every rank waits for it."""
+        if self.dp.rank == 0:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as f:
+                pickle.dump(self.state_dict(), f)
+            os.replace(tmp, path)
+        self.dp.barrier()
 
     def load_ckpt(self, path: str) -> None:
         """Resume from a checkpoint that save_ckpt wrote."""

@@ -320,6 +320,32 @@ def _line(case, **kw):
     return row
 
 
+def _kernels_line(chip_smoke, rows):
+    """kernels_line over `rows` with 7 launches of every kernel in every
+    phase but phase 12's CLI (6 histograms) and viewer (300 gathers) and
+    phase 13's second rank (5 of each under each mode, 4 in its SDS
+    steps)."""
+    counts = {k: 7 for k in chip_smoke.CAPTURED}
+    trace = {f"{k}_ms_per_launch": 0.1 for k in chip_smoke.CAPTURED}
+    main = {m: {"launches": counts, "trace": trace}
+            for m in chip_smoke.PATH_KERNELS}
+    modes = {"exact": {"launches": counts}, "bf16": {"launches": counts},
+             "options": {"adan": {"launches": counts}},
+             "cli": {"kernel_launches": counts}}
+    fives = {k: 5 for k in chip_smoke.CAPTURED}
+    dp = {"launches": [{m: counts for m in chip_smoke.PATH_KERNELS},
+                       {m: fives for m in chip_smoke.PATH_KERNELS}],
+          "sds": {"launches": [counts, {k: 4 for k in counts}]}}
+    return chip_smoke.kernels_line(
+        rows, main, {"kernel_launches": [counts]},
+        {"points": [{"epoch": 300, "launches": counts}]},
+        {"kernel_launches": [counts]}, modes,
+        _line("mesh_mxu_rows_0", launches=9, S=1),
+        {"row": _line("viewer_mxu_rows_0", launches=70, S=1),
+         "launches": {"cli": {**counts, "level_histogram": 6},
+                      "viewer": {**counts, "level_gather": 300}}}, dp)
+
+
 def test_kernels_line_carries_exact_and_bf16_cases(chip_smoke):
     """Each kernel's entry takes its largest call of the exact and the bf16
     step under its own mode (exact_case, bf16_case), its phase-11 launch
@@ -330,24 +356,11 @@ def test_kernels_line_carries_exact_and_bf16_cases(chip_smoke):
     for k in rows:
         mode = {"level_histogram": "hist_rows", "level_gather": "mxu_rows",
                 "segment_sum_sorted": "sort_pallas_rows"}[k]
-        for prefix in ("step", "step_sds", "step_exact", "step_bf16"):
+        for prefix in ("step", "step_sds", "step_exact", "step_bf16",
+                       "step_dp"):
             rows[k] += [_line(f"{prefix}_{mode}_{i}", Np=10 * (i + 1))
                         for i in range(3)]
-    counts = {k: 7 for k in chip_smoke.CAPTURED}
-    trace = {f"{k}_ms_per_launch": 0.1 for k in chip_smoke.CAPTURED}
-    main = {m: {"launches": counts, "trace": trace}
-            for m in chip_smoke.PATH_KERNELS}
-    modes = {"exact": {"launches": counts}, "bf16": {"launches": counts},
-             "options": {"adan": {"launches": counts}},
-             "cli": {"kernel_launches": counts}}
-    out = chip_smoke.kernels_line(
-        rows, main, {"kernel_launches": [counts]},
-        {"points": [{"epoch": 300, "launches": counts}]},
-        {"kernel_launches": [counts]}, modes,
-        _line("mesh_mxu_rows_0", launches=9, S=1),
-        {"row": _line("viewer_mxu_rows_0", launches=70, S=1),
-         "launches": {"cli": {**counts, "level_histogram": 6},
-                      "viewer": {**counts, "level_gather": 300}}})
+    out = _kernels_line(chip_smoke, rows)
     assert sorted(e["name"] for e in out["kernels"]) == sorted(
         chip_smoke.CAPTURED)
     for e in out["kernels"]:
@@ -478,3 +491,78 @@ def test_bf16_gemm_check_reads_every_layer_of_both_nets(chip_smoke):
     assert all(v <= 1.0 for v in res["err_over_limit"].values())
     assert res["y_rel_err"] == 0.0
     assert res["control_rel_err_min"] > chip_smoke.GEMM_TOL
+
+
+def test_kernels_line_carries_dp_launches_and_case(chip_smoke):
+    """Phase 13's record in the kernels line: each kernel's launches in
+    each rank under each vjp_mode and in the data-parallel SDS steps
+    (dp_launches), and its largest call of rank 0's captured
+    data-parallel step under its own mode (dp_case), with every number a
+    kernel line has."""
+    rows = {k: [] for k in chip_smoke.CAPTURED}
+    for k in rows:
+        for mode in chip_smoke.PATH_KERNELS:
+            for prefix in ("step", "step_sds", "step_exact", "step_bf16",
+                           "step_dp"):
+                rows[k] += [_line(f"{prefix}_{mode}_{i}", Np=10 * (i + 1))
+                            for i in range(3)]
+    own = {"level_histogram": "hist_rows", "level_gather": "mxu_rows",
+           "segment_sum_sorted": "sort_pallas_rows"}
+    for e in _kernels_line(chip_smoke, rows)["kernels"]:
+        assert e["dp_launches"] == {**{m: [7, 5]
+                                       for m in chip_smoke.PATH_KERNELS},
+                                    "sds": [7, 4]}
+        case = e["dp_case"]
+        assert case["case"] == f"step_dp_{own[e['name']]}_2"
+        for key in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms"):
+            assert key in case
+
+
+def test_dp_only_runs_phase_13_alone(chip_smoke, tmp_path, monkeypatch):
+    """--dp-only: phase 13 alone runs and the script returns 0."""
+    import sys
+    seen = []
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py", "--dp-only"])
+    monkeypatch.setattr(chip_smoke, "dp_phase", lambda device, wd: (
+        seen.append(wd) or ({}, {k: [] for k in chip_smoke.CAPTURED})))
+    for other in ("check_hist", "check_gather", "check_segsum", "main_path",
+                  "sds_phase", "cli_phase", "check_mesh_gather",
+                  "modes_phase", "pipeline_phase"):
+        monkeypatch.setattr(chip_smoke, other, lambda *a, **k: 1 / 0)
+    assert chip_smoke.run(torch.device("cpu"), "card", str(tmp_path)) == 0
+    assert seen == [str(tmp_path)]
+
+
+def test_dp_phase_ranks_on_the_cpu(chip_smoke, tmp_path, monkeypatch):
+    """Phase 13's code at tiny_config's widths on the CPU: the one-rank
+    group (gloo here) equal to the plain trainer bit for bit, then two
+    gloo ranks through dp_real (their one-rank reference within
+    DP_LOSS_RTOL and 2*n*lr, the replicas equal, 10 all-reduces a step)
+    and dp_sds on a tiny random Zero123 (the gradients the views' mean)."""
+    import sys
+    from morpheus_tpu_torch.parallel import sharding
+    # the ranks' function goes to them by its module's name
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    one_cfg = chip_smoke.tiny_config("hist_rows")
+    one = chip_smoke.dp_one_rank(torch.device("cpu"), one_cfg,
+                                 load_synthetic(one_cfg), n_timed=1)
+    assert one["bitwise_equal"] and one["backend"] == "gloo"
+    real = chip_smoke.tiny_config("hist_rows", {"tpu": {"data_parallel": 2}})
+    sds = chip_smoke.tiny_config("hist_rows", {
+        "train": {"virtual_freq": 1, "real_freq": 1, "warm_up_steps": 0,
+                  "freeze_epoch": 4},
+        "model": {"bg_radius": 1.4}, "data": {"novel_view_scale": 0.375},
+        "guidance": {"zero123_ckpt": "<random-tiny>"},
+        "tpu": {"data_parallel": 2}})
+    sharding.launch(chip_smoke.dp_rank, 2, "cpu",
+                    args=(str(tmp_path), real, sds, 2, 3))
+    ranks = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(2)]
+    r0 = ranks[0]["real"]
+    assert r0["loss_max_rel_diff"] <= chip_smoke.DP_LOSS_RTOL
+    assert r0["param_max_diff"] <= r0["param_limit"]
+    assert ranks[0]["sds"]["grad_max_rel_diff"] <= chip_smoke.DP_SDS_GRAD_TOL
+    for r in ranks:
+        assert r["real"]["replicas_equal"] and r["sds"]["replicas_equal"]
+        assert r["real"]["collectives_per_step"] == 10
+        assert r["real"]["losses"] == r0["losses"]

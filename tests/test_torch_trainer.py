@@ -73,8 +73,10 @@ def test_field_refuses_missing_cuda():
     ("train", "optim", "adan"),
 ])
 def test_unported_modes_raise(section, key, value):
-    """Data parallelism is not ported yet and raises, naming its ROADMAP
-    item. The other modes, once unported, now train and match JAX: the
+    """Data parallelism needs its process group: without one of
+    tpu.data_parallel ranks the trainer raises, saying how to start them
+    (tests/test_torch_dp.py trains it). The other modes, once unported,
+    now train and match JAX: the
     port takes three real steps (finite losses, every parameter group
     moves) and its real-view loss on a fixed batch matches the JAX
     trainer's at rtol 1e-4 (tests/torch_parity.py
@@ -84,7 +86,8 @@ def test_unported_modes_raise(section, key, value):
     if key == "data_parallel":
         _, tcfg = tp.config_pair("float32")
         tcfg[section][key] = value
-        with pytest.raises(NotImplementedError, match="A12"):
+        with pytest.raises(RuntimeError, match="needs a process group of 2 "
+                           "ranks and none is up"):
             Trainer(tcfg, load_synthetic(tcfg), device="cpu")
         return
     ttr = tp.check_trains_and_loss_matches_jax({section: {key: value}})
