@@ -18,6 +18,8 @@
     python3 chip_smoke.py --dp-cards         # phases 1-2, then data
                                              # parallelism over every card
 
+    python3 chip_smoke.py --bench-only       # phases 1-2 and 14
+
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every hand-written kernel from the sources in this checkout, one
@@ -119,7 +121,22 @@ Phases, in order; any failure exits non-zero:
      full-size "<random>" Zero123 on each), its gradients against the
      mean of the views' own; and the CLI's refusal of `tpu
      --data_parallel 2` on one card (`dp:`, `dp sds:` lines; the kernels
-     line's dp_launches and dp_case).
+     line's dp_launches and dp_case);
+  14. the JAX package's measurement tools, ported (bench_phase): `python -m
+     morpheus_tpu_torch.bench` (MORPHEUS_BENCH_NO_PAUSE=1) at bench.py's
+     operating point, its last JSON line checked (every real-step field
+     finite and > 0, the three default SDS fields present, nothing
+     skipped, `device` naming the card) and printed as a `bench:` line;
+     then morpheus_tpu_torch.scripts' bench_gather (all five modes, each
+     within its stated error, each kernel route's kernels launched),
+     profile_step base occ_off late, profile_step --roofline 300,
+     trace_step base, profile_sds s02, bench_dense_scale --smoke and the
+     entry point's forward render (python -m morpheus_tpu_torch.entry),
+     each in its own process with its lines echoed; a failure of any exits
+     non-zero; then each kernel on bench_gather's stream (the bench
+     point's 10 levels) against its plain version, as in phase 3 (kernel
+     lines bench_gather_<mode>; the kernels line's bench_gather_launches
+     and bench_gather_case).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -734,72 +751,17 @@ def main_path(device, ds, mode: str, n_timed: int):
     return trainer, result
 
 
-def _busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
-
 def step_trace(trainer, n: int = 5):
     """Phases 6 and 7: trace n steady steps (none refreshes the occupancy
-    grid). Device time by name: each kernel of the port, and the sorts (the
-    route's stable row sort under sort_pallas_rows; the samples' sorts of
-    the marcher on every path)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    every = trainer.config["tpu"]["occ_update_every"]
+    grid) from global step 257, after one untraced step
+    (morpheus_tpu_torch/scripts/trace_step.py's trace_steps, which
+    `python -m morpheus_tpu_torch.scripts.trace_step` runs too). Device
+    time by name: each kernel of the port, and the sorts (the route's
+    stable row sort under sort_pallas_rows; the samples' sorts of the
+    marcher on every path)."""
+    from morpheus_tpu_torch.scripts.trace_step import trace_steps
     trainer.global_step = 257
-    trainer.real_step(trainer.epoch)                   # untraced warm step
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            if trainer.global_step % every == 0:
-                trainer.global_step += 1
-            trainer.real_step(trainer.epoch)
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kern = [e for e in dev if "memcpy" not in e.name.lower()
-            and "memset" not in e.name.lower()]
-    if not kern:
-        raise AssertionError("the profiler saw no device kernels")
-    busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
-                        for e in dev]) / 1e3
-    by_name: dict = {}
-    for e in kern:
-        k = by_name.setdefault(e.name[:80], [0, 0.0])
-        k[0] += 1
-        k[1] += (e.time_range.end - e.time_range.start) / 1e3
-    result = {
-        "vjp_mode": trainer.spec.grid.vjp_mode,
-        "steps": n, "step_ms_traced": window_ms / n,
-        "kernels_per_step": len(kern) / n,
-        "device_busy_ms_per_step": busy_ms / n,
-        "device_idle_share": 1.0 - busy_ms / window_ms}
-    for label in (*wrappers(), "sort"):
-        # the sorts: kernels named for sorting, not segment_sum_sorted's
-        hits = [v for k, v in by_name.items() if label in k.lower()
-                and (label != "sort" or "segment_sum" not in k)]
-        result[f"{label}_launches_per_step"] = sum(c for c, _ in hits) / n
-        result[f"{label}_ms_per_step"] = sum(ms for _, ms in hits) / n
-        launches = sum(c for c, _ in hits)
-        result[f"{label}_ms_per_launch"] = (
-            sum(ms for _, ms in hits) / launches if launches else None)
-    for k, (c, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
-        log(f"trace: {ms / n:8.3f} ms/step {c / n:7.1f} launches/step  {k}")
-    log("trace:", json.dumps(result))
-    return result
+    return trace_steps(trainer, n, log=log)
 
 
 class _HostDraws:
@@ -953,14 +915,15 @@ def split_busy(kernels, marks: list):
             f"{[round(k[2] - k[1], 1) for k in spins]}); busy split not "
             "measured")
         return None
+    from morpheus_tpu_torch.scripts.trace_step import busy_us
     out, i = [], 0
     for m in marks:
         part = {p: 0.0 for p in ("render", "vae_encoder", "unet", "adam",
                                  "other")}
         for j in range(len(m.names) - 1):
             lo, hi = markers[i + j][2], markers[i + j + 1][1]
-            busy = _busy_us([(max(s, lo), min(e, hi)) for _, s, e in rest
-                             if e > lo and s < hi])
+            busy = busy_us([(max(s, lo), min(e, hi)) for _, s, e in rest
+                            if e > lo and s < hi])
             part[SDS_PARTS.get(m.names[j], "other")] += busy / 1e3
         out.append(part)
         i += len(m.names)
@@ -1026,6 +989,7 @@ def sds_trace(trainer, sampler, epoch: int, n: int = 2) -> dict:
     Adam and the rest (split_busy over _Marks), the same parts' spans on the
     device's clock (CUDA events, idle included), and the top kernels."""
     import torch
+    from morpheus_tpu_torch.scripts.trace_step import busy_us
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     every = trainer.config["tpu"]["occ_update_every"]
@@ -1062,7 +1026,7 @@ def sds_trace(trainer, sampler, epoch: int, n: int = 2) -> dict:
     if not dev:
         raise AssertionError("the profiler saw no device kernels")
     work = [k for k in dev if "spin_kernel" not in k[0]]
-    busy_ms = _busy_us([(s_, e_) for _, s_, e_ in work]) / 1e3
+    busy_ms = busy_us([(s_, e_) for _, s_, e_ in work]) / 1e3
     split = split_busy(dev, marks)
     by_name: dict = {}
     for name, s_, e_ in work:
@@ -2730,6 +2694,12 @@ def dp_rank(red, device, out_dir: str, real_cfg: dict, sds_cfg: dict,
     from morpheus_tpu_torch.data.dataset import load_synthetic
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if device.type == "cpu":
+        # each rank refreshes the occupancy grid itself: one thread keeps
+        # the CPU's float sums in one order, where several can sum in orders
+        # that differ between the ranks under load, and the replicas' grids
+        # then differ in the last bits
+        torch.set_num_threads(1)
     # configs/synthetic_full.yaml has synthetic_bench's scene
     ds = load_synthetic(real_cfg)
     res = {"real": dp_real(red, device, real_cfg, ds, n_timed,
@@ -2884,6 +2854,132 @@ def dp_cards_phase(workdir: str) -> dict:
     return result
 
 
+# phase 14: the JAX package's measurement tools, ported
+BENCH_POSITIVE = ("value", "vs_baseline", "steps_per_sec",
+                  "rays_per_sec_isolated", "rays_per_sec_late",
+                  "rays_per_sec_epoch_loop", "compile_s", "step_gflops",
+                  "mfu_vs_bf16_peak")
+BENCH_FINITE = ("loss", "kernel_build_s")
+BENCH_SDS = ("sds_step_ms_s05", "sds_step_ms_s02",
+             "sds_step_ms_bf16_s05_late")
+# the profilers' runs after the bench: (module under morpheus_tpu_torch,
+# arguments)
+BENCH_TOOLS = (("scripts.bench_gather", []),
+               ("scripts.profile_step", ["base", "occ_off", "late"]),
+               ("scripts.profile_step", ["--roofline", "300"]),
+               ("scripts.trace_step", ["base"]),
+               ("scripts.profile_sds", ["s02"]),
+               ("scripts.bench_dense_scale", ["--smoke"]),
+               ("entry", []))
+
+
+def run_tool(module: str, args: list, env_extra=None,
+             timeout: int = 600) -> str:
+    """python -m morpheus_tpu_torch.<module> on the card; its lines are
+    echoed (standard output, then standard error); a non-zero exit
+    raises. Returns its standard output."""
+    cmd = [sys.executable, "-m", f"morpheus_tpu_torch.{module}", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=dict(os.environ,
+                                                  **(env_extra or {})),
+                          capture_output=True, text=True, timeout=timeout)
+    for line in (proc.stdout + proc.stderr).splitlines():
+        log(f"  {line}")
+    log(f"tool: {' '.join(cmd[1:])} exited {proc.returncode} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                             f"{proc.returncode}")
+    return proc.stdout
+
+
+def check_bench(text: str, card_name: str) -> dict:
+    """The bench's last JSON line, held to phase 14's terms: every real-step
+    field finite and > 0 (loss and kernel_build_s finite), the three
+    default SDS fields present, finite and > 0 with nothing skipped, and
+    `device` naming the card."""
+    import math
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise AssertionError("the bench printed no JSON line")
+    out = json.loads(lines[-1])
+
+    def finite(v):
+        return isinstance(v, (int, float)) and math.isfinite(v)
+    faults = [k for k in BENCH_POSITIVE + BENCH_SDS
+              if not (finite(out.get(k)) and out[k] > 0)]
+    faults += [k for k in BENCH_FINITE if not finite(out.get(k))]
+    if "sds_skipped" in out:
+        faults.append(f"sds_skipped {out['sds_skipped']}")
+    if card_name not in str(out.get("device")):
+        faults.append(f"device {out.get('device')!r} is not {card_name!r}")
+    if faults:
+        raise AssertionError(f"bench line: {faults}")
+    return out
+
+
+def gather_modes(text: str) -> dict:
+    """bench_gather's results by mode, its kernels' launches checked: each
+    mode of a kernel route launched every kernel of the route (the script
+    checks errors and launches itself)."""
+    from morpheus_tpu_torch.scripts.bench_gather import MODES, ROUTE_KERNELS
+    res = {r["mode"]: r for r in _json_lines(text, "bench_gather:")}
+    if sorted(res) != sorted(MODES):
+        raise AssertionError(f"bench_gather modes {sorted(res)}")
+    for mode, r in res.items():
+        if any(r["launches"][k] < 1 for k in ROUTE_KERNELS[mode]):
+            raise AssertionError(f"bench_gather {mode}: {r['launches']}")
+    return res
+
+
+def bench_gather_lines(device) -> dict:
+    """Kernel lines (as phase 3's) on bench_gather's stream, the bench
+    point's (10 levels x 327,680 rows of a 16-level 2^15 grid, C=4, f32):
+    the histogram of its hist_rows backward, the gather of its mxu_rows
+    forward (three planes) and its mxu_rows_bf16 forward (one), and the
+    segment sum of its sort_pallas_rows backward (the stable sort's keys,
+    read through its order). Cases bench_gather_<mode>."""
+    import torch
+    from morpheus_tpu_torch.scripts.bench_gather import make_stream
+    st = make_stream(device)
+    idx, emb, ct, starts = st["idx"], st["emb"], st["ct"], st["starts"]
+    T = emb.shape[0]
+    keys, order = torch.sort(global_rows(idx, starts).to(torch.int32),
+                             stable=True)
+    return {"level_histogram": [hist_line("bench_gather_hist_rows", idx, ct,
+                                          starts, T, {})],
+            "level_gather": [gather_line("bench_gather_mxu_rows", idx, emb,
+                                         starts, 3),
+                             gather_line("bench_gather_mxu_rows_bf16", idx,
+                                         emb, starts, 1)],
+            "segment_sum_sorted": [segsum_line(
+                "bench_gather_sort_pallas_rows", keys, ct, T,
+                {"order": order})]}
+
+
+def bench_phase(device) -> dict:
+    """Phase 14: `python -m morpheus_tpu_torch.bench` (pause off), its line
+    checked (check_bench) and printed as a `bench:` line; then each of
+    BENCH_TOOLS, bench_gather's modes and launches checked (gather_modes);
+    then each kernel on bench_gather's stream against its plain version
+    (bench_gather_lines: rows)."""
+    import torch
+    t0 = time.perf_counter()
+    out = check_bench(run_tool("bench", [], {"MORPHEUS_BENCH_NO_PAUSE": "1"},
+                               timeout=900),
+                      torch.cuda.get_device_name(0))
+    log("bench:", json.dumps(out))
+    result = {"bench": out, "bench_s": time.perf_counter() - t0}
+    for module, args in BENCH_TOOLS:
+        text = run_tool(module, args)
+        if module == "scripts.bench_gather":
+            result["gather"] = gather_modes(text)
+    result["rows"] = bench_gather_lines(device)
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 14 seconds: {result['seconds']:.1f}")
+    return result
+
+
 def largest_row(step: list) -> dict:
     """The kernel line of the largest call among `step`'s lines."""
     return max(step, key=lambda r: r["L"] * r["Np"] * r["C"]
@@ -2891,7 +2987,7 @@ def largest_row(step: list) -> dict:
 
 
 def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
-                 pipeline, dp) -> dict:
+                 pipeline, dp, gather=None) -> dict:
     """The {"kernels": [...]} record: each kernel's numbers at its largest
     call of a steady step under its own mode (rows: every kernel line,
     by kernel), its launches on the main path, per launch in each mode's
@@ -2901,7 +2997,10 @@ def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
     (dp_launches), and its largest SDS, exact, bf16 and data-parallel
     step calls (sds_case, exact_case, bf16_case, dp_case);
     level_gather's mesh-export call (mesh_case) and the viewer's per-frame
-    query call (viewer_case)."""
+    query call (viewer_case); with phase 14's bench_gather results
+    (gather), its launches in each mode's checked calls
+    (bench_gather_launches) and its largest call on bench_gather's stream
+    (bench_gather_case)."""
 
     def entry(name, replaces, mode):
         # the kernel's numbers at its largest captured call of a step under
@@ -2941,7 +3040,11 @@ def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
                     **{m: [r[m][name] for r in dp["launches"]]
                        for m in PATH_KERNELS},
                     "sds": [r[name] for r in dp["sds"]["launches"]]},
-                "dp_case": largest_case(name, f"step_dp_{mode}_")}
+                "dp_case": largest_case(name, f"step_dp_{mode}_"),
+                **({"bench_gather_launches": {
+                    m: r["launches"][name] for m, r in gather.items()},
+                    "bench_gather_case": largest_case(name, "bench_gather_")}
+                   if gather else {})}
 
     def largest_case(name, prefix):
         # the kernel's largest call among the lines of one captured step
@@ -3034,6 +3137,10 @@ def run(device, card: str, workdir: str) -> int:
         log("dp only: phase 13 passed", json.dumps(
             {k: len(v) for k, v in dp_rows.items()}))
         return 0
+    if "--bench-only" in sys.argv[1:]:
+        bench_phase(device)
+        log("bench only: phase 14 passed")
+        return 0
     if "--cli-only" in sys.argv[1:]:
         check_mesh_gather(device, workdir)
         cli_phase(workdir)
@@ -3096,9 +3203,13 @@ def run(device, card: str, workdir: str) -> int:
     dp, dp_rows = dp_phase(device, workdir)
     for k, r in dp_rows.items():
         rows[k] += r
+    # phase 14: the bench and the profilers
+    bench = bench_phase(device)
+    for k, r in bench["rows"].items():
+        rows[k] += r
 
     kernels = kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
-                           pipeline, dp)
+                           pipeline, dp, bench["gather"])
     log("sds:", json.dumps({"setup": sds["setup"], "points": [
         {k: p[k] for k in ("epoch", "rays", "freeze", "active_levels",
                            "sds_step_ms", "peak_mem_gb", "launches_per_step",

@@ -153,7 +153,9 @@ DEFAULTS: dict[str, dict[str, Any]] = {
         "data_parallel": 1,          # ranks training one scene
                                      # (parallel/sharding.py)
         "chain_steps": True,         # TPU dispatch only; ignored
-        "remat_virtual": True,       # TPU dispatch only; ignored
+        "remat_virtual": True,       # recompute the virtual render and the
+                                     # VAE encoder in the backward
+                                     # (torch.utils.checkpoint)
         "donate_state": True,        # TPU dispatch only; ignored
     },
 }

@@ -9,9 +9,16 @@
 #
 # MORPHEUS_AB_RESUME=1 keeps the arms' workspaces, so each resumes from
 # its newest checkpoint.
+#
+# The live arm's trainer pid is published in $MORPHEUS_AB_PIDFILE (default
+# ${TMPDIR:-/tmp}/ab_run.pid), so that a concurrent
+# `python -m morpheus_tpu_torch.bench` can SIGSTOP it (and its ranks) for
+# the bench instead of timing steps behind it; the file is removed when the
+# arm ends or fails.
 set -eu
 cd "$(dirname "$0")/../.."
 OUT=exp/torch
+PIDFILE=${MORPHEUS_AB_PIDFILE:-${TMPDIR:-/tmp}/ab_run.pid}
 # arm trainers exit without idling the card behind their detached 3-D
 # metric eval (CPU-bound); its rows land in metric_3d.txt when it ends
 export MORPHEUS_EVAL_DRAIN_S=${MORPHEUS_EVAL_DRAIN_S:-0}
@@ -22,7 +29,10 @@ for arm in ab_exact ab_shipped; do
   echo "=== $arm: $(date -u +%FT%TZ)"
   T0=$(date +%s)
   python -m morpheus_tpu_torch --config "configs/$arm.yaml" \
-    exp --output "$OUT" || { echo "$arm FAILED"; exit 1; }
+    exp --output "$OUT" &
+  echo $! > "$PIDFILE"
+  wait $! || { rm -f "$PIDFILE"; echo "$arm FAILED"; exit 1; }
+  rm -f "$PIDFILE"
   echo "=== $arm done in $(( $(date +%s) - T0 ))s"
 done
 echo "--- metric_3d ---"

@@ -566,3 +566,178 @@ def test_dp_phase_ranks_on_the_cpu(chip_smoke, tmp_path, monkeypatch):
         assert r["real"]["replicas_equal"] and r["sds"]["replicas_equal"]
         assert r["real"]["collectives_per_step"] == 10
         assert r["real"]["losses"] == r0["losses"]
+
+
+# ---- phase 14: the bench and the profilers ----------------------------------
+
+CARD = "NVIDIA H100 80GB HBM3"
+
+
+def _bench_out(**kw):
+    out = {"metric": "rays_per_sec_per_chip", "value": 38000.0,
+           "unit": "rays/s", "vs_baseline": 1.27, "steps_per_sec": 18.6,
+           "rays_per_sec_isolated": 37000.0, "rays_per_sec_late": 34000.0,
+           "rays_per_sec_epoch_loop": 33000.0, "compile_s": 1.8,
+           "kernel_build_s": 0.0, "device": f"{CARD}, 700.00 W",
+           "loss": 0.71, "step_gflops": 47.8, "mfu_vs_bf16_peak": 0.0009,
+           "sds_step_ms_s05": 378.0, "sds_step_ms_s02": 184.5,
+           "sds_step_ms_bf16_s05_late": 513.8}
+    out.update(kw)
+    return out
+
+
+def _bench_text(out, head=None):
+    """The bench's standard output: the headline line, then the superset."""
+    head = head or {k: v for k, v in out.items() if not k.startswith("sds")}
+    return json.dumps(head) + "\n" + json.dumps(out) + "\n"
+
+
+def test_check_bench_reads_the_last_line(chip_smoke):
+    out = _bench_out()
+    assert chip_smoke.check_bench(_bench_text(out), CARD) == out
+    # the headline alone (the SDS part never printed) is refused
+    with pytest.raises(AssertionError, match="sds_step_ms_s05"):
+        chip_smoke.check_bench(json.dumps(out) + "\n" + json.dumps(
+            {k: v for k, v in out.items() if not k.startswith("sds")}),
+            CARD)
+    with pytest.raises(AssertionError, match="no JSON line"):
+        chip_smoke.check_bench("bench: [0.5s] real step\n", CARD)
+
+
+@pytest.mark.parametrize("bad", [
+    {"sds_skipped": {"sds_step_ms_s02": "over 5400s budget"}},
+    {"sds_step_ms_bf16_s05_late": None},
+    {"value": float("nan")},
+    {"rays_per_sec_late": float("inf")},
+    {"rays_per_sec_epoch_loop": 0.0},
+    {"loss": float("nan")},
+    {"mfu_vs_bf16_peak": None},
+    {"device": "cpu"},
+], ids=["sds_skipped", "sds_missing", "value_nan", "late_inf",
+        "loop_zero", "loss_nan", "no_mfu", "not_the_card"])
+def test_check_bench_refuses(chip_smoke, bad):
+    out = _bench_out(**bad)
+    out = {k: v for k, v in out.items() if v is not None}
+    with pytest.raises(AssertionError, match="bench line"):
+        chip_smoke.check_bench(_bench_text(out), CARD)
+
+
+def _gather_text(launches):
+    """bench_gather's lines with `launches` of each mode's route kernels."""
+    from morpheus_tpu_torch.scripts import bench_gather
+    kernels = ("level_histogram", "level_gather", "segment_sum_sorted")
+    return "".join(
+        "bench_gather: " + json.dumps({"mode": m, "launches": {
+            k: (launches if k in bench_gather.ROUTE_KERNELS[m] else 0)
+            for k in kernels}}) + "\n"
+        for m in bench_gather.MODES)
+
+
+def test_gather_modes_needs_every_route_kernel(chip_smoke):
+    res = chip_smoke.gather_modes(_gather_text(2))
+    assert sorted(res) == sorted(["rows", "hist_rows", "mxu_rows",
+                                  "mxu_rows_bf16", "sort_pallas_rows"])
+    with pytest.raises(AssertionError, match="bench_gather"):
+        chip_smoke.gather_modes(_gather_text(0))
+    with pytest.raises(AssertionError, match="modes"):
+        chip_smoke.gather_modes(_gather_text(2).split("\n", 1)[1])
+
+
+def test_bench_phase_runs_the_bench_then_each_tool(chip_smoke, monkeypatch):
+    """Phase 14 runs the bench with the pause off, then BENCH_TOOLS in
+    order; a tool that exits non-zero fails the phase."""
+    seen = []
+
+    def tool(module, args, env_extra=None, timeout=600):
+        seen.append((module, args, env_extra))
+        if module == "bench":
+            return _bench_text(_bench_out())
+        if module == "scripts.bench_gather":
+            return _gather_text(1)
+        return ""
+    monkeypatch.setattr(chip_smoke, "run_tool", tool)
+    monkeypatch.setattr(chip_smoke, "bench_gather_lines", lambda dev: {})
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: CARD)
+    res = chip_smoke.bench_phase(torch.device("cpu"))
+    assert seen[0] == ("bench", [], {"MORPHEUS_BENCH_NO_PAUSE": "1"})
+    assert [(m, a) for m, a, _ in seen[1:]] == list(chip_smoke.BENCH_TOOLS)
+    assert res["bench"]["value"] == 38000.0 and len(res["gather"]) == 5
+
+
+def test_run_tool_echoes_and_fails_on_a_nonzero_exit(chip_smoke,
+                                                     monkeypatch):
+    import subprocess
+    lines = []
+    monkeypatch.setattr(chip_smoke, "log", lines.append)
+    monkeypatch.setattr(subprocess, "run", lambda cmd, **k: subprocess.
+                        CompletedProcess(cmd, 3, "out\n", "err\n"))
+    with pytest.raises(AssertionError, match="exited 3"):
+        chip_smoke.run_tool("scripts.trace_step", ["base"])
+    assert lines[:2] == ["  out", "  err"]
+    monkeypatch.setattr(subprocess, "run", lambda cmd, **k: subprocess.
+                        CompletedProcess(cmd, 0, "ok\n", ""))
+    assert chip_smoke.run_tool("bench", []) == "ok\n"
+
+
+def test_bench_only_runs_phase_14_alone(chip_smoke, tmp_path, monkeypatch):
+    import sys
+    seen = []
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py", "--bench-only"])
+    monkeypatch.setattr(chip_smoke, "bench_phase",
+                        lambda dev: seen.append(dev) or {})
+    for other in ("check_hist", "check_gather", "check_segsum", "main_path",
+                  "sds_phase", "cli_phase", "check_mesh_gather",
+                  "modes_phase", "pipeline_phase", "dp_phase"):
+        monkeypatch.setattr(chip_smoke, other, lambda *a, **k: 1 / 0)
+    assert chip_smoke.run(torch.device("cpu"), "card", str(tmp_path)) == 0
+    assert seen == [torch.device("cpu")]
+
+
+def test_kernels_line_carries_bench_gather_launches(chip_smoke):
+    rows = {k: [] for k in chip_smoke.CAPTURED}
+    for k in rows:
+        for mode in chip_smoke.PATH_KERNELS:
+            for prefix in ("step", "step_sds", "step_exact", "step_bf16",
+                           "step_dp"):
+                rows[k] += [_line(f"{prefix}_{mode}_0")]
+        rows[k] += [_line(f"bench_gather_{k}", Np=99)]
+    gather = chip_smoke.gather_modes(_gather_text(3))
+    counts = {k: 7 for k in chip_smoke.CAPTURED}
+    trace = {f"{k}_ms_per_launch": 0.1 for k in chip_smoke.CAPTURED}
+    main = {m: {"launches": counts, "trace": trace}
+            for m in chip_smoke.PATH_KERNELS}
+    modes = {"exact": {"launches": counts}, "bf16": {"launches": counts},
+             "options": {}, "cli": {"kernel_launches": counts}}
+    dp = {"launches": [{m: counts for m in chip_smoke.PATH_KERNELS}],
+          "sds": {"launches": [counts]}}
+    out = chip_smoke.kernels_line(
+        rows, main, {"kernel_launches": [counts]},
+        {"points": [{"epoch": 300, "launches": counts}]},
+        {"kernel_launches": [counts]}, modes,
+        _line("mesh_mxu_rows_0", launches=9, S=1),
+        {"row": _line("viewer_mxu_rows_0", launches=70, S=1),
+         "launches": {"cli": counts}}, dp, gather)
+    from morpheus_tpu_torch.scripts.bench_gather import ROUTE_KERNELS
+    for e in out["kernels"]:
+        assert e["bench_gather_launches"] == {
+            m: 3 if e["name"] in ks else 0 for m, ks in ROUTE_KERNELS.items()}
+        assert e["bench_gather_case"]["case"] == f"bench_gather_{e['name']}"
+
+
+def test_bench_gather_lines_on_the_cpu(chip_smoke, monkeypatch):
+    """Phase 14's kernel lines on bench_gather's stream, cut to a tiny
+    stream and timed once: each kernel against its plain version."""
+    from morpheus_tpu_torch.scripts import bench_gather
+    real = bench_gather.make_stream
+    monkeypatch.setattr(bench_gather, "make_stream", lambda dev: real(
+        dev, num_levels=4, log2_hashmap_size=10, active=3, points=64))
+    monkeypatch.setattr(chip_smoke, "timings", lambda *a, **k: {
+        "ms": 1.0, "plain_ms": 1.0, "library_ms": 1.0, "call_ms": 1.0})
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda *a, **k: (1.0, 0))
+    rows = chip_smoke.bench_gather_lines(torch.device("cpu"))
+    assert [r["case"] for k in chip_smoke.CAPTURED for r in rows[k]] == [
+        "bench_gather_hist_rows", "bench_gather_mxu_rows",
+        "bench_gather_mxu_rows_bf16", "bench_gather_sort_pallas_rows"]
+    for k in rows:
+        for r in rows[k]:
+            assert r["max_abs_err"] < 1e-4 and r["bound_ms"] > 0
