@@ -20,6 +20,8 @@
 
     python3 chip_smoke.py --bench-only       # phases 1-2 and 14
 
+    python3 chip_smoke.py --chain-only       # phases 1-2 and 15
+
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every hand-written kernel from the sources in this checkout, one
@@ -79,7 +81,9 @@ Phases, in order; any failure exits non-zero:
   10. the trainer CLI with SDS on configs/synthetic_full.yaml, widths kept,
      depth cut (SDS_CLI_CUTS): one epoch, then a second process resumes;
      finite losses, a guidance panel and checkpoints holding pending_grads
-     and host_step are checked (`sds cli:` line);
+     and host_step are checked (`sds cli:` line). Phases 9 and 10 run side
+     by side (one thread each, the card and the host shared): their
+     seconds include each other's load;
   11. the training step's other modes (modes_phase): configs/ab_exact.yaml
      at full width (the exact surface-band ladder; `exact:` line with
      exact_step_ms, a trace, kernel lines step_exact_<mode>_<i> under each
@@ -136,7 +140,21 @@ Phases, in order; any failure exits non-zero:
      non-zero; then each kernel on bench_gather's stream (the bench
      point's 10 levels) against its plain version, as in phase 3 (kernel
      lines bench_gather_<mode>; the kernels line's bench_gather_launches
-     and bench_gather_case).
+     and bench_gather_case);
+  15. (run after phase 11, on its scene; each part's seconds are `lap:`
+     lines) tpu.chain_steps (chain_phase): under each vjp_mode and the bf16
+     policy, an eager and a graphed trainer of configs/synthetic_bench.yaml
+     from the same seed take two blocks of 10 real steps (epochs 100 and
+     101 from step 1000: a sampled refresh in the first, 10 then 12 active
+     levels, so two captures); their parameters, optimizer slots,
+     occupancy grids and generator states are compared, bit for bit under
+     sort_pallas_rows with deterministic algorithms (losses too), within
+     stated tolerances elsewhere, beside a second eager run; each kernel of the mode ran on every graphed
+     step, each replay counting its captured calls; a traced replayed
+     block names each kernel as often as its counter says; then the eager
+     and the graphed step's real_step_ms, the epoch loop's rays/s of each,
+     the captures' seconds and pool memory (`chain:`, `chain timing:`
+     lines; the kernels line's chain_launches).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -159,6 +177,20 @@ F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 
 def log(*args):
     print(*args, flush=True)
+
+
+class Laps:
+    """Seconds of each part of a run: laps(name) logs and keeps the
+    seconds since the last lap (or since this was made)."""
+
+    def __init__(self):
+        self.t, self.seconds = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self.t, 1)
+        self.t = now
+        log(f"lap: {name} {self.seconds[name]} s")
 
 
 def card_line() -> str:
@@ -2980,6 +3012,245 @@ def bench_phase(device) -> dict:
     return result
 
 
+# ---- phase 15: the chained real step (tpu.chain_steps) ---------------------
+
+# two blocks of configs/synthetic_bench.yaml's real_freq 10 (n_iters 1) at
+# epochs 100 and 101: 10, then 12 active levels (a second graph), the
+# learning rate and max_level's mask changing between them; from global
+# step 1000, so that the sampled refresh of step 1008 falls in the first
+# block
+CHAIN_EPOCHS = (100, 101)
+CHAIN_STEP0 = 1000
+# (label, vjp_mode, tpu overrides): the three routes, and the bf16 policy
+# under the default route
+CHAIN_RUNS = (("hist_rows", "hist_rows", {}),
+              ("mxu_rows", "mxu_rows", {}),
+              ("sort_pallas_rows", "sort_pallas_rows", {}),
+              ("bf16_hist_rows", "hist_rows", {"compute_dtype": "bfloat16"}))
+# graphed against eager where the kernels sum with float atomics in the
+# order the card runs them (level_histogram; index_add_ in every mode
+# but under deterministic algorithms): the parameters within 2*n*lr after
+# n steps (phase 8's tolerance: Adam with eps 1e-15 turns a round-off
+# gradient into a full-lr move) and the occupancy EMA within 1e-3 of its
+# largest value; the losses are reported, not held: a step's loss
+# depends on which samples the budget keeps (a top-k of march scores), so
+# last-bit differences can flip a selection and move one step's loss by a
+# fraction of a percent (0.37% in one run), and a second eager run is the
+# control beside it; sort_pallas_rows under deterministic algorithms bit
+# for bit, losses included
+CHAIN_OCC_REL = 1e-3
+# timed steps each of the eager and the graphed step (hist_rows)
+CHAIN_TIMED = 10
+
+
+def chain_trainer(device, ds, mode: str, tpu: dict, chain: bool):
+    """A Trainer of configs/synthetic_bench.yaml under `mode` and the tpu
+    overrides, tpu.chain_steps `chain`, one iteration an epoch, at global
+    step CHAIN_STEP0."""
+    from morpheus_tpu_torch.config import load_config
+    from morpheus_tpu_torch.train.trainer import Trainer
+    cfg = load_config(os.path.join(HERE, "configs", "synthetic_bench.yaml"))
+    cfg["tpu"].update(vjp_mode=mode, chain_steps=chain, **tpu)
+    cfg["train"]["n_iters"] = 1
+    tr = Trainer(cfg, ds, device=device)
+    tr.global_step = tr.host_step = CHAIN_STEP0
+    return tr
+
+
+def chain_blocks(tr, deterministic: bool) -> dict:
+    """train_one_epoch at each of CHAIN_EPOCHS (under torch's deterministic
+    algorithms when asked), launches counted from 0 over them; the
+    losses, seconds, launches and the trainer's captures."""
+    import warnings
+
+    import torch
+    reset_counts()
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    losses = []
+    try:
+        with warnings.catch_warnings():
+            # cumsum warns; its per-ray scans are short rows
+            warnings.simplefilter("ignore", UserWarning)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for epoch in CHAIN_EPOCHS:
+                tr.epoch = epoch
+                losses.append(tr.train_one_epoch())
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return {"losses": losses, "seconds": time.perf_counter() - t0,
+            "launches": read_counts(), "captures": list(tr.captures)}
+
+
+def chain_compare(eager, graphed, bitwise: bool, losses=((), ())) -> dict:
+    """Graphed against eager after the same blocks: the parameters, the
+    optimizer's slots and step, the occupancy grid, the draws' generator
+    state and the blocks' losses (eager's, graphed's); bit for bit, or
+    within the stated tolerances (the losses then reported only)."""
+    import torch
+    n = len(CHAIN_EPOCHS) * eager.config["train"]["real_freq"]
+    lr = max(float(eager.curr.learning_rate(e)) for e in CHAIN_EPOCHS)
+    groups = {"params": (eager.params, graphed.params),
+              "step": ([eager.optim.step], [graphed.optim.step]),
+              "occ": ([eager.occ.occs], [graphed.occ.occs]),
+              # a function of occs: within the tolerance a cell at its
+              # threshold may read either way, so counted, not held
+              "binaries": ([eager.occ.binaries], [graphed.occ.binaries])}
+    groups.update({k: (getattr(eager.optim, k), getattr(graphed.optim, k))
+                   for k in eager.optim.SLOTS})
+    out = {"generator_equal": torch.equal(
+        eager.draws.generator.get_state(), graphed.draws.generator.get_state()),
+        "global_step": [eager.global_step, graphed.global_step]}
+    for name, (xs, ys) in groups.items():
+        out[f"{name}_equal"] = all(torch.equal(x, y) for x, y in zip(xs, ys))
+        out[f"{name}_max_abs_diff"] = max(
+            float((x.detach().double() - y.detach().double()).abs().max())
+            for x, y in zip(xs, ys))
+    out["binaries_cells_differ"] = int(
+        (eager.occ.binaries != graphed.occ.binaries).sum())
+    out["param_limit"] = 2 * n * lr
+    out["occ_limit"] = CHAIN_OCC_REL * float(eager.occ.occs.abs().max())
+    bad = [k for k in ("generator_equal",) if not out[k]]
+    if eager.global_step != graphed.global_step:
+        bad.append("global_step")
+    out["losses_max_rel_diff"] = max(
+        [abs(a - b) / abs(a) for a, b in zip(*losses)], default=0.0)
+    if bitwise:
+        bad += [f"{k}_equal" for k in groups if not out[f"{k}_equal"]]
+        if list(losses[0]) != list(losses[1]):
+            bad.append("losses")
+    else:
+        if out["params_max_abs_diff"] > out["param_limit"]:
+            bad.append("params")
+        if out["occ_max_abs_diff"] > out["occ_limit"]:
+            bad.append("occ")
+        if not out["step_equal"]:
+            bad.append("step")
+    out["failed"] = bad
+    return out
+
+
+def chain_timing(device, ds) -> dict:
+    """real_step_ms of the eager step (real_step) and of the graphed step
+    (chained_real_step, a replay) at the second block's point (12 levels),
+    each step ending in a synchronize (median of CHAIN_TIMED, steps on the
+    refresh cadence skipped), and the epoch loop's rays/s of each: one
+    train_one_epoch() of 10 iterations (100 real steps, refreshes and the
+    EMA included) after one of one iteration that settles."""
+    import torch
+    out = {}
+    for chain in (False, True):
+        tr = chain_trainer(device, ds, "hist_rows", {}, chain)
+        tr.epoch = CHAIN_EPOCHS[1]
+        tr._set_levels(tr._active_levels())
+        step = tr.chained_real_step if chain else tr.real_step
+        every = tr.config["tpu"]["occ_update_every"]
+        step(tr.epoch)
+        times = []
+        for _ in range(CHAIN_TIMED):
+            if tr.global_step % every == 0:
+                tr.global_step += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(tr.epoch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        tr.train_one_epoch()                          # settles
+        tr.config["train"]["n_iters"] = 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_one_epoch()
+        torch.cuda.synchronize()
+        per_step = (time.perf_counter() - t0) / (10 * 10)
+        key = "graphed" if chain else "eager"
+        out[f"{key}_step_ms"] = statistics.median(times)
+        out[f"{key}_steps_ms"] = times
+        out[f"{key}_epoch_rays_per_s"] = (tr.config["train"]["real_ray_num"]
+                                          / per_step)
+        if chain:
+            out["captures"] = list(tr.captures)
+        del tr
+        torch.cuda.empty_cache()
+    out["card"] = card_line()
+    return out
+
+
+def chain_phase(device, ds) -> dict:
+    """Phase 15: tpu.chain_steps on the card. For each of CHAIN_RUNS an
+    eager and a graphed trainer from the same seed take the two blocks of
+    CHAIN_EPOCHS (a refresh in the first, a level count change between
+    them: two captures) and are compared (chain_compare: bit for bit under
+    sort_pallas_rows with deterministic algorithms, both runs; within the
+    stated tolerances elsewhere); every kernel of the mode must have run on
+    every step of the graphed blocks, counted as each replay's captured
+    calls; then one replayed block (10 steady chained steps) is traced and
+    each kernel of the mode must be in it, as often as its counter says.
+    Then chain_timing under hist_rows. `chain:` lines; returns the
+    result."""
+    import torch
+    from morpheus_tpu_torch.scripts.trace_step import trace_steps
+    t0 = time.perf_counter()
+    result = {"runs": {}}
+    for label, mode, tpu in CHAIN_RUNS:
+        det = mode == "sort_pallas_rows"
+        eager = chain_trainer(device, ds, mode, tpu, False)
+        e = chain_blocks(eager, det)
+        graphed = chain_trainer(device, ds, mode, tpu, True)
+        g = chain_blocks(graphed, det)
+        if len(g["captures"]) != len(CHAIN_EPOCHS) or e["captures"]:
+            raise AssertionError(f"chain {label}: captures {g['captures']} "
+                                 f"(eager {e['captures']})")
+        cmp = chain_compare(eager, graphed, bitwise=det,
+                            losses=(e["losses"], g["losses"]))
+        control = None
+        if not det:
+            # a second eager run: how far two eager runs part
+            again = chain_trainer(device, ds, mode, tpu, False)
+            a = chain_blocks(again, det)
+            control = chain_compare(eager, again, bitwise=False,
+                                    losses=(e["losses"], a["losses"]))
+            del again
+        del eager
+        n_steps = graphed.global_step - CHAIN_STEP0
+        for k, v in g["launches"].items():
+            if (v < n_steps) if k in PATH_KERNELS[mode] else v:
+                raise AssertionError(f"chain {label}: {k} launched {v} "
+                                     f"times in {n_steps} graphed steps")
+        counted = read_counts()
+        trace = trace_steps(graphed, n=graphed.config["train"]["real_freq"],
+                            log=log, chained=True)
+        per_step = {k: (v - counted[k]) / (trace["steps"] + 1)
+                    for k, v in read_counts().items()}
+        for k in PATH_KERNELS[mode]:
+            seen = trace[f"{k}_launches_per_step"]
+            if not seen or seen != per_step[k]:
+                raise AssertionError(f"chain {label}: the trace of a "
+                                     f"replayed block shows {seen} {k} a "
+                                     f"step, its counter {per_step[k]}")
+        run = {"vjp_mode": mode, "tpu": tpu, "deterministic": det,
+               "eager": e, "graphed": g, "compare": cmp,
+               "eager_control": control,
+               "counted_per_step": per_step, "card": card_line(),
+               "trace": {k: v for k, v in trace.items()
+                         if k in ("step_ms_traced", "kernels_per_step",
+                                  "device_busy_ms_per_step",
+                                  "device_idle_share")
+                         or any(k.startswith(n) for n in PATH_KERNELS[mode])}}
+        log("chain:", json.dumps({"run": label, **run}))
+        if cmp["failed"]:
+            raise AssertionError(f"chain {label}: graphed and eager differ "
+                                 f"in {cmp['failed']}")
+        result["runs"][label] = run
+        del graphed
+        torch.cuda.empty_cache()
+    result["timing"] = chain_timing(device, ds)
+    result["seconds"] = time.perf_counter() - t0
+    log("chain timing:", json.dumps(result["timing"]))
+    log(f"phase 15 seconds: {result['seconds']:.1f}")
+    return result
+
+
 def largest_row(step: list) -> dict:
     """The kernel line of the largest call among `step`'s lines."""
     return max(step, key=lambda r: r["L"] * r["Np"] * r["C"]
@@ -2987,7 +3258,7 @@ def largest_row(step: list) -> dict:
 
 
 def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
-                 pipeline, dp, gather=None) -> dict:
+                 pipeline, dp, gather=None, chain=None) -> dict:
     """The {"kernels": [...]} record: each kernel's numbers at its largest
     call of a steady step under its own mode (rows: every kernel line,
     by kernel), its launches on the main path, per launch in each mode's
@@ -3000,7 +3271,8 @@ def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
     query call (viewer_case); with phase 14's bench_gather results
     (gather), its launches in each mode's checked calls
     (bench_gather_launches) and its largest call on bench_gather's stream
-    (bench_gather_case)."""
+    (bench_gather_case); with phase 15's result (chain), its launches in
+    each run's graphed blocks, each replay counted (chain_launches)."""
 
     def entry(name, replaces, mode):
         # the kernel's numbers at its largest captured call of a step under
@@ -3044,7 +3316,10 @@ def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
                 **({"bench_gather_launches": {
                     m: r["launches"][name] for m, r in gather.items()},
                     "bench_gather_case": largest_case(name, "bench_gather_")}
-                   if gather else {})}
+                   if gather else {}),
+                **({"chain_launches": {
+                    k: r["graphed"]["launches"][name]
+                    for k, r in chain["runs"].items()}} if chain else {})}
 
     def largest_case(name, prefix):
         # the kernel's largest call among the lines of one captured step
@@ -3141,16 +3416,25 @@ def run(device, card: str, workdir: str) -> int:
         bench_phase(device)
         log("bench only: phase 14 passed")
         return 0
+    if "--chain-only" in sys.argv[1:]:
+        from morpheus_tpu_torch.config import load_config
+        from morpheus_tpu_torch.data.dataset import load_synthetic
+        chain_phase(device, load_synthetic(load_config(os.path.join(
+            HERE, "configs", "synthetic_bench.yaml"))))
+        log("chain only: phase 15 passed")
+        return 0
     if "--cli-only" in sys.argv[1:]:
         check_mesh_gather(device, workdir)
         cli_phase(workdir)
         log("cli only: the mesh export's level_gather and the CLI phase "
             "passed")
         return 0
+    laps = Laps()
     rows = {"level_histogram": check_hist(device),
             "level_gather": check_gather(device)}
     rows["segment_sum_sorted"], sort_row = check_segsum(device)
     check_double_backward(device)
+    laps("3-4 kernel checks")
     if "--kernels-only" in sys.argv[1:]:
         log("kernels only: every kernel built and matched its plain twin")
         return 0
@@ -3175,41 +3459,57 @@ def run(device, card: str, workdir: str) -> int:
             rows[k] += r
         del calls
         torch.cuda.empty_cache()
+    laps("5-7 main path")
     # phase 8b: the SDS virtual step on the same scene
     # (configs/synthetic_full.yaml has synthetic_bench's 32 frames at 360^2)
     sds, sds_rows = sds_phase(device, ds)
     for k, r in sds_rows.items():
         rows[k] += r
+    laps("8b sds")
     for mode in PATH_KERNELS:
         small_reference(device, mode)
     sds_small_reference(device)
+    laps("8 small references")
     log("sort of sort_pallas_rows:", json.dumps(sort_row))
     log("step ms by mode:", json.dumps({m: r["real_step_ms"]
                                         for m, r in main.items()}))
     mesh_row = check_mesh_gather(device, workdir)
     rows["level_gather"].append(mesh_row)
-    cli = cli_phase(workdir)
-    sds_cli = sds_cli_phase(workdir)
+    # phases 9 and 10 drive CLI processes and read their artifacts: side by
+    # side, the card and the host shared between them
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        cli_f = pool.submit(cli_phase, workdir)
+        sds_cli_f = pool.submit(sds_cli_phase, workdir)
+        cli, sds_cli = cli_f.result(), sds_cli_f.result()
+    laps("9 and 10 cli, sds cli")
     # phase 11: the other modes of the training step
     modes, modes_rows = modes_phase(device, ds, workdir)
     for k, r in modes_rows.items():
         rows[k] += r
+    laps("11 modes")
+    # phase 15: the chained real step, on the same scene
+    chain = chain_phase(device, ds)
+    laps("15 chain")
     del ds
     torch.cuda.empty_cache()
     # phase 12: the pipeline around training
     pipeline = pipeline_phase(device, workdir)
     rows["level_gather"].append(pipeline["row"])
+    laps("12 pipeline")
     # phase 13: data parallelism
     dp, dp_rows = dp_phase(device, workdir)
     for k, r in dp_rows.items():
         rows[k] += r
+    laps("13 dp")
     # phase 14: the bench and the profilers
     bench = bench_phase(device)
     for k, r in bench["rows"].items():
         rows[k] += r
+    laps("14 bench")
 
     kernels = kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
-                           pipeline, dp, bench["gather"])
+                           pipeline, dp, bench["gather"], chain)
     log("sds:", json.dumps({"setup": sds["setup"], "points": [
         {k: p[k] for k in ("epoch", "rays", "freeze", "active_levels",
                            "sds_step_ms", "peak_mem_gb", "launches_per_step",
@@ -3222,6 +3522,7 @@ def run(device, card: str, workdir: str) -> int:
                             for k, v in modes["options"].items()
                             if "step_ms" in v},
         "references": modes["references"]}))
+    log("phase seconds:", json.dumps(laps.seconds))
     log(card)
     log(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

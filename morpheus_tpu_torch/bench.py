@@ -15,25 +15,31 @@ fires every 16th step on 1/16 of the cells. The grid starts at its initial
 value, as bench.py's state does.
 
 Fields, in bench.py's names:
-  value, steps_per_sec   40 real steps enqueued back to back after 6
-                         warm-up steps, one torch.cuda.synchronize() at the
-                         end: the loop that `python -m morpheus_tpu_torch`
-                         runs. bench.py's value times tpu.chain_steps (10
-                         steps in one TPU dispatch); the port's step is
-                         eager and has no counterpart of it.
-  rays_per_sec_isolated  32 steps, each ending in a synchronize (mean):
-                         chip_smoke.py's real_step_ms protocol.
-  rays_per_sec_late      epoch 1900, step 209,000, all 16 levels, 16 steps
-                         back to back after 6 warm-up steps.
+  value, steps_per_sec   40 chained real steps (Trainer.chained_real_step,
+                         tpu.chain_steps: on the card each a replay of the
+                         CUDA graph of the step, the occupancy refresh
+                         eager between replays) enqueued back to back
+                         after 2 that capture the graph and settle, one
+                         torch.cuda.synchronize() at the end: the path
+                         that `python -m morpheus_tpu_torch`'s epoch loop
+                         runs, as bench.py's value times tpu.chain_steps
+                         (10 steps in one TPU dispatch).
+  rays_per_sec_isolated  32 eager steps (Trainer.real_step), each ending in
+                         a synchronize (mean): chip_smoke.py's
+                         real_step_ms protocol.
+  rays_per_sec_late      epoch 1900, step 209,000, all 16 levels, 16 eager
+                         steps back to back after 6 warm-up steps, as
+                         bench.py times its unchained step there.
   rays_per_sec_epoch_loop  two train_one_epoch() calls at real_freq 10 and
                          n_iters 10 (110 real steps an epoch, as the JAX
                          count) after one that settles: what the CLI holds.
   vs_baseline            value over 30k rays/s, an A100 estimate of the
                          reference (220k steps of ~2.2k rays in ~4.5 h; the
                          reference publishes no number). Not a TPU number.
-  compile_s              seconds of the 6 warm-up steps (nothing compiles:
-                         the first steps pay the allocator and cuBLAS /
-                         cuDNN set-up).
+  compile_s              seconds of the 6 eager warm-up steps (nothing
+                         compiles: the first steps pay the allocator and
+                         cuBLAS / cuDNN set-up); the graph's capture is
+                         in value's 2 settling steps, untimed.
   kernel_build_s         seconds of kernels.build_all() at the start; 0
                          when the kernels are already built in this
                          checkout, and on the CPU, which builds none.
@@ -229,15 +235,18 @@ def real_step_flops(trainer) -> float:
     return count_flops(fwd_bwd)
 
 
-def run_steps(trainer, n: int, sync_each: bool = False):
+def run_steps(trainer, n: int, sync_each: bool = False,
+              chained: bool = False):
     """(seconds, last loss) of n real steps at trainer.epoch, enqueued back
     to back with one synchronize at the end, or each ending in one
-    (sync_each)."""
+    (sync_each); eager steps (real_step), or with `chained` the epoch
+    loop's chained steps (chained_real_step)."""
     dev = trainer.device
+    step = trainer.chained_real_step if chained else trainer.real_step
     loss = torch.tensor(float("nan"))
     t0 = time.perf_counter()
     for _ in range(n):
-        loss = trainer.real_step(trainer.epoch)
+        loss = step(trainer.epoch)
         if sync_each:
             sync(dev)
     sync(dev)
@@ -334,7 +343,9 @@ def run_bench(cfg: dict, device, frames: int = 8, hw: int = 128,
     compile_s, _ = run_steps(trainer, warmup)
     secs, loss = run_steps(trainer, n_isolated, sync_each=True)
     dt_iso = secs / n_isolated
-    dt = run_steps(trainer, n_chain)[0] / n_chain
+    _phase("chained real steps: capture, then timed replays")
+    run_steps(trainer, 2, chained=True)
+    dt = run_steps(trainer, n_chain, chained=True)[0] / n_chain
     _phase("flops of one step")
     flops = real_step_flops(trainer)
 
@@ -452,12 +463,17 @@ def _guard_s() -> int:
                               str(int(max(7200, 1.5 * budget + 1800)))))
 
 
-def _signal(pids, sig) -> None:
+def _signal(pids, sig) -> list:
+    """Send `sig` to each of `pids`; returns the pids it reached (a process
+    that has exited is skipped)."""
+    reached = []
     for pid in pids:
         try:
             os.kill(pid, sig)
+            reached.append(pid)
         except OSError:
             pass
+    return reached
 
 
 def _pause_full_run(pidfile: str | None = None):
@@ -469,7 +485,8 @@ def _pause_full_run(pidfile: str | None = None):
     s, and SIGCONT the supervisor at exit, which then resumes the run from
     its last checkpoint. A detached guard continues the supervisor after
     _guard_s() even if this process is killed. Returns the resume function,
-    or None when no supervisor is live."""
+    or None when no supervisor is live, also when it exits between the
+    check of its pid and the stop (the guard is then killed)."""
     import atexit
     try:
         with open(pidfile or _pidfile("MORPHEUS_FULLRUN_PIDFILE",
@@ -491,7 +508,13 @@ def _pause_full_run(pidfile: str | None = None):
 
     atexit.register(_resume)      # before the stop: a crash still resumes
     _phase(f"pausing full-budget supervisor (pid {sup}) to free the card")
-    os.kill(sup, signal.SIGSTOP)
+    if not _signal([sup], signal.SIGSTOP):
+        # it exited since the pid check: nothing to pause or resume
+        atexit.unregister(_resume)
+        guard.kill()
+        guard.wait()
+        _phase(f"supervisor pid {sup} exited before the stop")
+        return None
     trainers = [p for p in sorted(_children(sup))
                 if "morpheus_tpu_torch" in _cmdline(p)]
     victims = {}

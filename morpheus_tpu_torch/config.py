@@ -6,8 +6,9 @@ that the two packages read the same YAML files identically. The ``tpu``
 section keeps its name: most of its keys are semantic (sample budgets, march
 steps, occupancy cadence, gradient payload type), ``remat_virtual``
 becomes torch.utils.checkpoint of the virtual render and the VAE encoder,
-and the two that only steered TPU dispatch (``chain_steps``,
-``donate_state``) are accepted and ignored by the port.
+``chain_steps`` runs the epoch loop's real steps as replays of a CUDA graph
+of the step on a card (train/trainer.py), and ``donate_state``, which only
+steered XLA's buffer donation, is accepted and ignored by the port.
 """
 from __future__ import annotations
 
@@ -152,7 +153,9 @@ DEFAULTS: dict[str, dict[str, Any]] = {
         "mesh_chunk": 2097152,
         "data_parallel": 1,          # ranks training one scene
                                      # (parallel/sharding.py)
-        "chain_steps": True,         # TPU dispatch only; ignored
+        "chain_steps": True,         # the epoch loop's real steps replay
+                                     # a CUDA graph of the step (one
+                                     # process; the CPU runs its body)
         "remat_virtual": True,       # recompute the virtual render and the
                                      # VAE encoder in the backward
                                      # (torch.utils.checkpoint)

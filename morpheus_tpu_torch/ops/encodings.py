@@ -26,13 +26,18 @@ def freq_encode(x: torch.Tensor, n_freqs: int, max_level=None,
                 include_input: bool = True) -> torch.Tensor:
     """Layout [x, sin(f0 x), cos(f0 x), sin(f1 x), ...] with f_k = 2^k.
 
-    max_level (a host float, or None) zeroes the frequencies at or above
-    floor(max_level * n_freqs), computed in float32 as the reference's traced
-    schedule does."""
+    max_level (a host float, a 0-dim float32 tensor on x's device, or None)
+    zeroes the frequencies at or above floor(max_level * n_freqs), computed
+    in float32 as the reference's traced schedule does; a tensor's mask is
+    computed on the device, with no host read."""
     freqs = _freqs(n_freqs, x.dtype, x.device)
     xb = x[..., None, :] * freqs[:, None]                        # (..., F, D)
     enc = torch.stack([torch.sin(xb), torch.cos(xb)], dim=-2)    # (..., F, 2, D)
-    if max_level is not None:
+    if isinstance(max_level, torch.Tensor):
+        keep = (torch.arange(n_freqs, device=x.device)
+                < torch.floor(max_level * float(n_freqs)))
+        enc = torch.where(keep[:, None, None], enc, 0.0)
+    elif max_level is not None:
         n_active = int(np.floor(np.float32(max_level) * np.float32(n_freqs)))
         if n_active < n_freqs:
             keep = torch.arange(n_freqs, device=x.device) < n_active

@@ -426,7 +426,9 @@ def encode(inputs: torch.Tensor, embeddings: torch.Tensor, spec: HashGridSpec,
            compute_dtype=None) -> torch.Tensor:
     """Positions in [-bound, bound]^D -> (..., L*C) features.
 
-    max_level (host float) zero-fills levels >= ceil(max_level*L);
+    max_level (a host float, or a 0-dim float32 tensor on the inputs'
+    device, whose mask is then computed there with no host read, as the
+    JAX package's traced mask is) zero-fills levels >= ceil(max_level*L);
     active_levels (static int) skips the gather of the levels at or above it
     (exact when no smaller than the max_level count: they are zero either
     way). Out-of-range points encode to zeros.
@@ -462,7 +464,10 @@ def encode(inputs: torch.Tensor, embeddings: torch.Tensor, spec: HashGridSpec,
     L = L_full if active_levels is None else max(1, min(L_full,
                                                         int(active_levels)))
     n_corners = 1 if spec.interpolation == "nearest" else (1 << D)
-    active = active_count(max_level, L_full)
+    active = (torch.clamp(torch.ceil(max_level * float(L_full)), 1.0,
+                          float(L_full))
+              if isinstance(max_level, torch.Tensor)
+              else active_count(max_level, L_full))
 
     # dense packed prefix (hist_rows only): levels whose whole lattice fits
     # the table gather one (2^D*C)-wide row per site from a table of 2^D
@@ -507,7 +512,8 @@ def encode(inputs: torch.Tensor, embeddings: torch.Tensor, spec: HashGridSpec,
                     else (w[..., None] * feats).sum(1))          # (Lu, P, C)
     out_l = outs[0] if len(outs) == 1 else torch.cat(outs, 0)   # (L, P, C)
 
-    if active is not None and active < L:
+    if isinstance(active, torch.Tensor) or (active is not None
+                                            and active < L):
         keep = torch.arange(L, device=dev) < active
         out_l = torch.where(keep[:, None, None], out_l, 0.0)
 

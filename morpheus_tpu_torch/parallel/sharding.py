@@ -30,9 +30,11 @@ run and return their inputs' values.
 
 Not ported: make_mesh and replicate_state (the process group and the
 broadcast above), shard_batch_stacked and make_sharded_real_steps_chained
-(XLA's scan dispatch: the eager step has no chain, and tpu.chain_steps is
-ignored), and the sharded mesh queries the JAX module's docstring names
-(no JAX code shards them).
+(the chained sharded step: Rows.select and Rows.split_sorted read back to
+the host, which a CUDA graph cannot hold, so under a process group the
+trainer runs the eager step whatever tpu.chain_steps says, and says so),
+and the sharded mesh queries the JAX module's docstring names (no JAX code
+shards them).
 """
 from __future__ import annotations
 

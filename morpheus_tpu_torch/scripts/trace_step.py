@@ -36,10 +36,13 @@ def busy_us(intervals) -> float:
     return total
 
 
-def trace_steps(trainer, n: int = 5, top: int = 8, log=bench.log) -> dict:
+def trace_steps(trainer, n: int = 5, top: int = 8, log=bench.log,
+                chained: bool = False) -> dict:
     """Trace n steady steps of `trainer` from its global step (after one
-    untraced step). Device time by name: each kernel of the port, and the
-    sorts (the route's stable row sort under sort_pallas_rows; the
+    untraced step): eager steps (real_step), or with `chained` the epoch
+    loop's chained steps (chained_real_step: on a card replays of the
+    step's CUDA graph). Device time by name: each kernel of the port, and
+    the sorts (the route's stable row sort under sort_pallas_rows; the
     samples' sorts of the marcher on every path); the `top` names by time
     are logged as `trace:` lines, then the result as one `trace: {json}`
     line. On the CPU, host ops and their self times."""
@@ -48,7 +51,8 @@ def trace_steps(trainer, n: int = 5, top: int = 8, log=bench.log) -> dict:
 
     cuda = trainer.device.type == "cuda"
     every = trainer.config["tpu"]["occ_update_every"]
-    trainer.real_step(trainer.epoch)                   # untraced warm step
+    step = trainer.chained_real_step if chained else trainer.real_step
+    step(trainer.epoch)                                # untraced warm step
     bench.sync(trainer.device)
     activities = [ProfilerActivity.CPU]
     if cuda:
@@ -58,7 +62,7 @@ def trace_steps(trainer, n: int = 5, top: int = 8, log=bench.log) -> dict:
         for _ in range(n):
             if trainer.global_step % every == 0:
                 trainer.global_step += 1
-            trainer.real_step(trainer.epoch)
+            step(trainer.epoch)
         bench.sync(trainer.device)
         window_ms = (time.perf_counter() - t0) * 1e3
     if cuda:
@@ -79,7 +83,7 @@ def trace_steps(trainer, n: int = 5, top: int = 8, log=bench.log) -> dict:
         k[0] += 1
         k[1] += ms
     result = {
-        "vjp_mode": trainer.spec.grid.vjp_mode,
+        "vjp_mode": trainer.spec.grid.vjp_mode, "chained": chained,
         "steps": n, "step_ms_traced": window_ms / n,
         "kernels_per_step": len(kern) / n,
         "device_busy_ms_per_step": busy_ms / n,

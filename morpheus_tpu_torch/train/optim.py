@@ -5,7 +5,9 @@ adam_update, adan_update, ema_update).
 
 The update runs on the device with no host synchronisation: the skip is a
 select between the new and the old state, as in the reference's compiled
-step.
+step. The learning rate is a host float or a 0-dim float32 tensor on the
+parameters' device (train/schedule.py StepScalars), whose rates a captured
+CUDA graph then reads at each replay; both give the same float32 products.
 """
 from __future__ import annotations
 
@@ -55,25 +57,45 @@ class _Optimizer:
 
     def _apply(self, grads, t, rates):
         """(new parameters, new slots in SLOTS order) of the update at step
-        t (a device scalar), each parameter at its own rate."""
+        t (a device scalar), each parameter at its own rate: `rates` is a
+        list of (rate, indices of the parameters at that rate), a rate a
+        float or a 0-dim device tensor (_scale)."""
         raise NotImplementedError
+
+    def _rates(self, lr, frozen) -> list:
+        """[(rate, parameter indices)]: each group multiplier times lr in
+        float32 (a host float for a host lr, a 0-dim tensor for a tensor
+        lr), 0.0 for the groups in `frozen`."""
+        by_mult = {}
+        for i, (n, m) in enumerate(zip(self.names, self.mult)):
+            by_mult.setdefault(None if group_of(n) in frozen else m,
+                               []).append(i)
+        host = not isinstance(lr, torch.Tensor)
+        return [(0.0 if m is None
+                 else float(m * np.float32(lr)) if host else lr * float(m),
+                 idx) for m, idx in by_mult.items()]
+
+    @staticmethod
+    def _scale(xs, rates, op=torch._foreach_mul_) -> None:
+        """op(xs[idx], rate) in place for each (rate, idx) group of
+        `rates`: one multi-tensor launch a group."""
+        for rate, idx in rates:
+            op([xs[i] for i in idx], rate)
 
     @torch.no_grad()
     def update(self, grads, lr, frozen=(), ok=None) -> torch.Tensor:
-        """Apply one step with base learning rate `lr`, the groups in
-        `frozen` at rate 0; returns the on-device flag of whether it was
-        applied. `ok` (a device bool) also gates the step, as the
-        gradients' own finiteness does."""
+        """Apply one step with base learning rate `lr` (a host float or a
+        0-dim float32 device tensor), the groups in `frozen` at rate 0;
+        returns the on-device flag of whether it was applied. `ok` (a
+        device bool) also gates the step, as the gradients' own finiteness
+        does."""
         # the GradScaler's fused check, with an unscale by exactly 1.0
         found = torch.zeros((), dtype=torch.float32, device=self.step.device)
         torch._amp_foreach_non_finite_check_and_unscale_(
             grads, found, torch.ones_like(found))
         ok = (found == 0.0) if ok is None else (found == 0.0) & ok
         t = self.step + 1.0
-        rates = [np.float32(0.0) if group_of(n) in frozen
-                 else m * np.float32(lr)
-                 for n, m in zip(self.names, self.mult)]
-        new, slots = self._apply(grads, t, rates)
+        new, slots = self._apply(grads, t, self._rates(lr, frozen))
         for dst, src in zip([self.params] + [getattr(self, k)
                                              for k in self.SLOTS],
                             [new] + list(slots)):
@@ -111,7 +133,7 @@ class Adam(_Optimizer):
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         upd = torch._foreach_div(mu, bc1)
-        torch._foreach_mul_(upd, [float(r) for r in rates])
+        self._scale(upd, rates)
         torch._foreach_div_(upd, den)
         return torch._foreach_sub(self.params, upd), (mu, nu)
 
@@ -165,10 +187,12 @@ class Adan(_Optimizer):
         torch._foreach_add_(upd, bv)
         torch._foreach_div_(upd, den)
         wd = np.float32(self.weight_decay)
-        torch._foreach_mul_(upd, [float(r) for r in rates])
+        self._scale(upd, rates)
         new = torch._foreach_sub(self.params, upd)
-        torch._foreach_div_(new, [float(np.float32(1.0) + r * wd)
-                                  for r in rates])
+        # the decay divisor 1 + r*wd in float32, on the host or the device
+        self._scale(new, [(r * float(wd) + 1.0 if isinstance(r, torch.Tensor)
+                           else float(np.float32(1.0) + np.float32(r) * wd),
+                           idx) for r, idx in rates], torch._foreach_div_)
         return new, (m, v, n, g)
 
 

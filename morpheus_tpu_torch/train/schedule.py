@@ -1,12 +1,16 @@
 """Training curriculum as host functions of the epoch
 (port of morpheus_tpu/train/schedule.py: learning_rate, max_level,
 loss_weights, freeze_deform, view_ranges, sds_t_range). Values are
-computed in float32, as the reference's traced schedule computes them."""
+computed in float32, as the reference's traced schedule computes them.
+StepScalars holds the values the real step reads as 0-dim device tensors
+at fixed addresses, which a captured step reads where the JAX package's
+compiled step reads its traced epoch."""
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 _F = np.float32
 
@@ -131,3 +135,30 @@ class Curriculum:
             default_azimuth=d["default_azimuth"],
             full_theta_range=tuple(d["full_theta_range"]),
             full_phi_range=tuple(d["full_phi_range"]))
+
+
+class StepScalars:
+    """learning_rate, max_level and loss_weights of one epoch as 0-dim
+    float32 tensors on `device`, views of one buffer whose address never
+    changes: a CUDA graph of the real step reads them there. set(epoch)
+    writes the host's float32 values (Curriculum) with fill_, a kernel
+    argument each, so that it neither copies from host memory nor waits
+    for the card; it writes only when the epoch differs from the last one
+    written."""
+
+    def __init__(self, curr: Curriculum, device):
+        self.curr, self.epoch = curr, None
+        self.buf = torch.zeros((5,), dtype=torch.float32, device=device)
+        self.views = self.buf.unbind()
+        self.lr, self.max_level = self.views[:2]
+        self.loss_weights = self.views[2:]          # (ori, rgb, beta)
+
+    def set(self, epoch) -> None:
+        if epoch == self.epoch:
+            return
+        c = self.curr
+        values = (c.learning_rate(epoch), c.max_level(epoch),
+                  *c.loss_weights(epoch))
+        for t, v in zip(self.views, values):
+            t.fill_(float(np.float32(v)))
+        self.epoch = epoch

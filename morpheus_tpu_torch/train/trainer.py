@@ -18,6 +18,20 @@ frozen
 which the next real step folds in. Neither step synchronises with the
 host; the epoch loop reads the loss once at its end.
 
+Under tpu.chain_steps (the default; the JAX package's one lax.scan dispatch
+of the real_freq real steps, trainer.py:343-370 and :864-900 there) the
+epoch loop's real steps on a card replay a CUDA graph of the real step's
+body (_StepGraph: the batch draws, the loss, its gradients, the fold of
+the carried gradients and the optimizer update), captured once for each
+active-level count after an eager warm-up step and evicted when the
+count moves on. The body reads the curriculum's learning rate, max_level
+and loss weights from device buffers (schedule.StepScalars) where the
+JAX step reads its traced epoch; the occupancy refresh stays outside the
+graph, on the host's cadence, and writes the grid in place, as does every
+other writer of a tensor the graph reads. On the CPU the same body runs
+eagerly (the graph's plain twin). chain_steps false, and data
+parallelism (whose step reads back to the host), run the eager step.
+
 Under tpu.data_parallel N the trainer is one of N ranks of a process
 group (parallel/sharding.py; the port of trainer.py:114-130 and
 _train_one_epoch_dp, :740-848, of the JAX package): every rank holds the
@@ -49,14 +63,19 @@ from ..data import dataset as data_lib
 from ..model.field import (SHADING_ALBEDO, SHADING_LAMBERTIAN,
                            SHADING_TEXTURELESS, Field, FieldSpec)
 from ..ops import density as density_lib
-from ..ops import occupancy
+from ..ops import gather, hist, occupancy, segsum
 from ..ops.hashgrid import HashGridSpec, active_count
 from ..parallel import sharding
 from ..utils import Draws, resolve_device
 from . import losses, optim
-from .schedule import Curriculum
+from .schedule import Curriculum, StepScalars
 
 OCC_CHUNK = 32768
+
+# the hand-written kernels' wrappers, whose launch counters a replayed graph
+# advances by the calls its capture recorded
+KERNEL_WRAPPERS = (hist.level_histogram, gather.level_gather,
+                   segsum.segment_sum_sorted)
 
 
 class RecordedDraws:
@@ -99,6 +118,51 @@ class _Replay:
         return self.values[self.i - 1]
 
     uniform = normal = randint = _next
+
+
+class _StepGraph:
+    """A CUDA graph of Trainer._real_body, captured on the trainer's
+    current state. The draws' generator is registered with the graph, so
+    that each replay advances it as the eager body would. replay() returns
+    the loss, a buffer of the graph that the next replay overwrites. A
+    wrapper's launch counter counts its host calls: the capture launches
+    nothing, so its calls are taken back off the counters and added again
+    at each replay. capture_s and pool_mb (the card memory the graph's
+    private pool holds) are measured at capture. The graph holds for the
+    step field's spec and the occupancy state it was captured against,
+    whose tensors are written in place, never rebound, while it lives
+    (fits)."""
+
+    def __init__(self, trainer: "Trainer"):
+        dev = trainer.device
+        self.spec, self.occ = trainer.step_field.spec, trainer.occ
+        self.graph = torch.cuda.CUDAGraph()
+        if isinstance(trainer.draws, Draws):
+            self.graph.register_generator_state(trainer.draws.generator)
+        before = [f.launches for f in KERNEL_WRAPPERS]
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph):
+            self.loss = trainer._real_body()
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+        self.recorded = [f.launches - b for f, b in zip(KERNEL_WRAPPERS,
+                                                        before)]
+        for f, b in zip(KERNEL_WRAPPERS, before):
+            f.launches = b
+
+    def fits(self, trainer: "Trainer") -> bool:
+        return (self.spec == trainer.step_field.spec
+                and self.occ is trainer.occ)
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        for f, n in zip(KERNEL_WRAPPERS, self.recorded):
+            f.launches += n
+        return self.loss
 
 
 class Trainer:
@@ -173,6 +237,21 @@ class Trainer:
         self.dp.broadcast(list(self.field.parameters()))
         self._reset_state()
         self.occ = occupancy.init_occupancy(tpu["occ_resolution"], self.device)
+        self.scalars = StepScalars(self.curr, self.device)
+        self.chain = bool(tpu.get("chain_steps", True))
+        if self.chain and self.dp.active:
+            # the data-parallel step reads its selections back to the host
+            # (parallel/sharding.py Rows), which a graph cannot hold
+            self.chain = False
+            if self.dp.rank == 0:
+                print("tpu.chain_steps: the data-parallel real step runs "
+                      "eagerly (it reads back to the host)", flush=True)
+        # the chained step replays a graph on a card; on the CPU it runs
+        # the graph's body eagerly
+        self.graphed = self.chain and self.device.type == "cuda"
+        # one line per capture: {"active_levels", "warmup_s", "capture_s",
+        # "pool_mb", "launches"}
+        self.captures: list = []
         self.global_step = 0
         # optimizer steps of the epoch loop, real and virtual, counted on
         # the host: the warm-up gate and the guidance-panel cadence read it
@@ -203,6 +282,9 @@ class Trainer:
         # says whether any was added since the last real step
         self.pending = [torch.zeros_like(p) for p in self.params]
         self._pending_live = False
+        # graphs of the step, by active-level count: they hold the
+        # addresses of the state just replaced
+        self._graphs: dict = {}
 
     def load_params(self, state: dict):
         """Load parameters by name (see convert.params_from_jax); resets the
@@ -244,6 +326,7 @@ class Trainer:
             **field)
         self.field.spec = self.spec
         self._set_levels(self._active_levels())
+        self._graphs.clear()
 
     # ---- occupancy ----
 
@@ -254,6 +337,16 @@ class Trainer:
                                              return_color=False)["sigma"]
                 for c in x.split(OCC_CHUNK)])
         return fn
+
+    @torch.no_grad()
+    def _refresh_occ(self, step: int, t_scalar, draws) -> None:
+        """The occupancy refresh of `step` (_maybe_update_occ), written into
+        self.occ's tensors in place: a graph of the step reads them where
+        it saw them at capture."""
+        new = self._maybe_update_occ(self.occ, step, t_scalar, draws)
+        if new is not self.occ:
+            self.occ.occs.copy_(new.occs)
+            self.occ.binaries.copy_(new.binaries)
 
     @torch.no_grad()
     def _maybe_update_occ(self, occ, step: int, t_scalar, draws):
@@ -310,11 +403,13 @@ class Trainer:
                                          bg_color)
 
     def real_loss_from_batch(self, occ, draws, epoch, max_level, batch,
-                             bg_color):
+                             bg_color, weights=None):
         """Weighted real-view loss of an explicit ray batch; (loss, out).
         Under a process group the batch is this rank's rows of the global
         batch and the loss this rank's share of the global loss: the sum
-        over the ranks is the loss of the global batch."""
+        over the ranks is the loss of the global batch. weights: the (ori,
+        rgb, beta) loss weights (host floats or device scalars), by default
+        the curriculum's at `epoch`."""
         field = self.step_field
         tr = self.config["train"]
         red = self.dp
@@ -330,7 +425,8 @@ class Trainer:
         gt_rgb = (batch["image"] * gt_mask[:, None]
                   + bg_color * (1 - gt_mask[:, None]))
         gt_depth = batch["depth"]
-        ori_w, rgb_w, beta_w = self.curr.loss_weights(epoch)
+        ori_w, rgb_w, beta_w = (self.curr.loss_weights(epoch)
+                                if weights is None else weights)
 
         loss = rgb_w * losses.rgb_loss(out["image"], gt_rgb, red)
         if tr["mask_weight"] > 0:
@@ -597,27 +693,101 @@ class Trainer:
         whose gradients are summed over the ranks before the carried
         virtual-step gradients, already reduced, are added)."""
         draws = self.draws
-        step = self.global_step
-        lr = self.curr.learning_rate(epoch)
-        max_level = self.curr.max_level(epoch)
         t_occ = draws.uniform("t_occ", ())
-        self.occ = self._maybe_update_occ(self.occ, step, t_occ, draws)
+        self._refresh_occ(self.global_step, t_occ, draws)
+        c = self.curr
+        loss = self._real_update(draws, c.learning_rate(epoch),
+                                 c.max_level(epoch), c.loss_weights(epoch),
+                                 self._pending_live, batch, bg_color)
+        self._pending_live = False
+        self.global_step += 1
+        return loss
+
+    def _real_update(self, draws, lr, max_level, weights, fold: bool,
+                     batch=None, bg_color=None) -> torch.Tensor:
+        """A real step after its occupancy refresh: the batch (drawn unless
+        given), the loss, its gradients, the fold of the carried
+        virtual-step gradients when `fold` (trainer.py:416-418 of the JAX
+        package; a non-finite sum skips the update and the carried
+        gradients are dropped all the same) and the optimizer update at
+        `lr`. The curriculum's values are host floats or device scalars."""
         if batch is None:
             batch, bg_color = self._real_batch(draws)
-        loss, _ = self.real_loss_from_batch(self.occ, draws, epoch,
-                                            max_level, batch, bg_color)
+        loss, _ = self.real_loss_from_batch(self.occ, draws, None, max_level,
+                                            batch, bg_color, weights)
         grads, loss = self.dp.reduce_grads(self._grads(loss), loss,
                                            mean=False)
-        if self._pending_live:
-            # fold in the carried virtual-step gradients (trainer.py:416-418
-            # of the JAX package); a non-finite sum skips the update and the
-            # carried gradients are dropped all the same
+        if fold:
             torch._foreach_add_(grads, self.pending)
             torch._foreach_zero_(self.pending)
-            self._pending_live = False
         self.optim.update(grads, lr)
-        self.global_step += 1
         return loss.detach()
+
+    def _real_body(self) -> torch.Tensor:
+        """What a graph of the chained real step holds: _real_update with
+        the curriculum's device scalars (self.scalars) and the carried
+        gradients always added, as the JAX step adds them (zeros when none
+        were carried: a gradient's -0 then becomes +0, and nothing else
+        changes)."""
+        s = self.scalars
+        return self._real_update(self.draws, s.lr, s.max_level,
+                                 s.loss_weights, True)
+
+    def chained_real_step(self, epoch) -> torch.Tensor:
+        """One real step of the epoch loop under tpu.chain_steps: draw
+        t_occ, refresh the occupancy grid if this step is due (eagerly, in
+        place), then the body (_real_body) at `epoch`: on a card a replay
+        of the graph of this active-level count, captured at its first
+        step, which runs the body eagerly on a side stream as its warm-up;
+        on the CPU the body, eagerly. Returns the loss; a replay's is the
+        graph's buffer, which the next replay overwrites, so a caller that
+        keeps it clones it."""
+        draws = self.draws
+        t_occ = draws.uniform("t_occ", ())
+        self._refresh_occ(self.global_step, t_occ, draws)
+        self.scalars.set(epoch)
+        loss = self._replay() if self.graphed else self._real_body()
+        self._pending_live = False
+        self.global_step += 1
+        return loss
+
+    def _replay(self) -> torch.Tensor:
+        """The body by this active-level count's graph. A graph of another
+        count, or one captured against another spec or occupancy state, is
+        dropped first (the run has moved past it: trainer.py:827-848 of the
+        JAX package); a missing one is captured after the warm-up step,
+        whose loss is then returned."""
+        al = self._active_levels()
+        for k in [k for k, g in self._graphs.items()
+                  if k != al or not g.fits(self)]:
+            del self._graphs[k]
+        if al in self._graphs:
+            return self._graphs[al].replay()
+        loss, self._graphs[al] = self._capture()
+        return loss
+
+    def _capture(self):
+        """(the warm-up step's loss, its _StepGraph): the body once,
+        eagerly, on a side stream (it loads the kernels and fills every
+        cached constant: a copy from host memory cannot be captured), then
+        the capture of the body, which runs nothing. A failed capture
+        raises."""
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            loss = self._real_body()
+        main.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        warmup_s = time.perf_counter() - t0
+        graph = _StepGraph(self)
+        self.captures.append({
+            "active_levels": self._active_levels(), "warmup_s": warmup_s,
+            "capture_s": graph.capture_s, "pool_mb": graph.pool_mb,
+            "launches": dict(zip((f.__name__ for f in KERNEL_WRAPPERS),
+                                 graph.recorded))})
+        return loss, graph
 
     def _grads(self, loss):
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
@@ -636,11 +806,10 @@ class Trainer:
         (sharding.ViewDraws) and the loss and the gradients are the mean
         over the views (sharding.py:142-238 of the JAX package)."""
         draws = self.draws
-        step = self.global_step
         lr = self.curr.learning_rate(epoch)
         max_level = self.curr.max_level(epoch)
         t_occ = draws.uniform("t_occ", ())
-        self.occ = self._maybe_update_occ(self.occ, step, t_occ, draws)
+        self._refresh_occ(self.global_step, t_occ, draws)
         loss, out = self._virtual_loss(self.occ, self.dp.view_draws(draws),
                                        epoch, max_level, sampler)
         grads, loss = self.dp.reduce_grads(self._grads(loss), loss,
@@ -670,12 +839,14 @@ class Trainer:
         with rank 0's guidance panels alone). A virtual slot
         runs an SDS step when there is guidance and the host step has
         passed warm_up_steps, a real step otherwise, as the reference's
-        does."""
+        does. Under tpu.chain_steps every real step is chained_real_step
+        (its graph replayed on a card), else real_step."""
         tr, exp = self.config["train"], self.config["exp"]
         n_iters = n_iters or tr.get("n_iters", 10)
         self._set_levels(self._active_levels())
         sampler = (self.virtual_sampler(self._novel_view_scale())
                    if self.guidance is not None else None)
+        real_step = self.chained_real_step if self.chain else self.real_step
         loss = torch.tensor(float("nan"))
         for _ in range(n_iters):
             for _ in range(tr["virtual_freq"]):
@@ -688,10 +859,10 @@ class Trainer:
                             == 0):
                         self.save_guidance_panels(diag, self.host_step)
                 else:
-                    loss = self.real_step(self.epoch)
+                    loss = real_step(self.epoch)
                 self.host_step += 1
             for _ in range(tr["real_freq"]):
-                loss = self.real_step(self.epoch)
+                loss = real_step(self.epoch)
                 self.host_step += 1
         optim.ema_update(self.ema, self.params, tr["ema_decay"])
         return float(loss)
@@ -737,7 +908,9 @@ class Trainer:
 
     def load_state_dict(self, state: dict) -> None:
         """Restore a state_dict() (or convert.load_jax_ckpt's dict, which
-        has no draws state) in place."""
+        has no draws state) in place: every tensor keeps its address. The
+        graphs of the step are dropped (the draws' state is replaced)."""
+        self._graphs.clear()
         if state["optim"]["name"] != self.optim.name:
             raise ValueError(
                 f"a checkpoint of optimizer {state['optim']['name']!r} into "
@@ -759,11 +932,9 @@ class Trainer:
         self._pending_live = pending is not None and any(
             np.any(np.asarray(pending[n])) for n in self.optim.names)
         self.optim.step.fill_(float(state["optim"]["step"]))
-        self.occ = occupancy.OccupancyState(
-            occs=torch.as_tensor(np.asarray(state["occ"]["occs"]),
-                                 device=self.device),
-            binaries=torch.as_tensor(np.asarray(state["occ"]["binaries"]),
-                                     device=self.device))
+        self.occ.occs.copy_(torch.as_tensor(np.asarray(state["occ"]["occs"])))
+        self.occ.binaries.copy_(torch.as_tensor(
+            np.asarray(state["occ"]["binaries"])))
         self.global_step = int(state["global_step"])
         self.host_step = int(state.get("host_step", self.global_step))
         self.epoch = int(state["epoch"])

@@ -146,14 +146,17 @@ def test_epoch_loop_runs_110_real_steps(pair, monkeypatch):
     real steps (the virtual slots run real steps without guidance) and
     advances the host step by as many, as the JAX trainer's epoch does
     (its chained dispatch counted by its step count); epoch_loop_step_s
-    runs three such epochs."""
+    runs three such epochs. Under tpu.chain_steps (on here, the default)
+    every one of them is the port's chained step."""
     jtr, ttr = pair
     steps = []
 
     def real_step(epoch):
         steps.append(epoch)
         return torch.tensor(0.0)
-    monkeypatch.setattr(ttr, "real_step", real_step)
+    assert ttr.chain
+    monkeypatch.setattr(ttr, "chained_real_step", real_step)
+    monkeypatch.setattr(ttr, "real_step", lambda epoch: 1 / 0)
     monkeypatch.setitem(ttr.config, "train", dict(ttr.config["train"],
                                                   real_freq=10, n_iters=10))
     bench.set_point(ttr, 300, 33000)
@@ -235,6 +238,27 @@ def test_tiny_bench_sds_variants():
     out = bench.run_bench(bench.bench_config(TINY), "cpu", sds_mode="1",
                           budget_s=0.0, **kw)
     assert out["sds_skipped"] == {k: "over 0s budget" for k in SDS_FIELDS}
+
+
+def test_bench_value_times_the_chained_step(monkeypatch):
+    """bench.run_bench's value: chained steps back to back (2 that capture
+    and settle, then n_chain timed), as bench.py's value times
+    tpu.chain_steps; rays_per_sec_isolated: eager steps, each synchronised."""
+    calls = []
+    real = bench.run_steps
+
+    def run_steps(trainer, n, sync_each=False, chained=False):
+        calls.append((n, sync_each, chained))
+        return real(trainer, n, sync_each, chained)
+    monkeypatch.setattr(bench, "run_steps", run_steps)
+    out = bench.run_bench(bench.bench_config(TINY), "cpu", frames=8, hw=16,
+                          warmup=1, n_chain=3, n_isolated=2, n_late=1,
+                          loop_real_freq=1, loop_iters=1, sds_mode="0",
+                          emit=lambda line: None)
+    assert calls[:4] == [(1, False, False), (2, True, False), (2, False, True),
+                         (3, False, True)]
+    assert all(not c for _, _, c in calls[4:])
+    assert _finite(out["value"]) and out["value"] > 0
 
 
 def test_count_flops_matches_a_hand_count_of_one_layer():
@@ -325,6 +349,34 @@ def test_pause_full_run_terms_trainer_and_its_ranks(tmp_path, monkeypatch):
         if sup.poll() is None:
             sup.kill()
             sup.wait()
+
+
+def test_pause_full_run_of_a_supervisor_gone_before_the_stop(tmp_path,
+                                                             monkeypatch):
+    """A supervisor that exits between the pid check and the stop (here a
+    reaped process whose command line reads as the supervisor's through a
+    patched _cmdline): _pause_full_run raises nothing, returns None, leaves
+    no live guard and no resume hook at exit."""
+    import atexit
+    gone = subprocess.Popen(["true"])
+    gone.wait()
+    pidfile = tmp_path / "fullrun.pid"
+    pidfile.write_text(str(gone.pid))
+    monkeypatch.setattr(bench, "_cmdline", lambda pid: (
+        "bash run_full_budget.sh" if pid == gone.pid else ""))
+    guards, hooks = [], []
+    real_popen = subprocess.Popen
+
+    def popen(*a, **kw):
+        guards.append(real_popen(*a, **kw))
+        return guards[-1]
+    monkeypatch.setattr(subprocess, "Popen", popen)
+    monkeypatch.setattr(atexit, "register", hooks.append)
+    monkeypatch.setattr(atexit, "unregister", hooks.remove)
+    monkeypatch.setenv("MORPHEUS_PAUSE_GUARD_S", "120")
+    assert bench._pause_full_run(pidfile=str(pidfile)) is None
+    assert len(guards) == 1 and guards[0].poll() is not None
+    assert hooks == []
 
 
 def test_pauses_leave_foreign_pids_alone(tmp_path, monkeypatch):
