@@ -17,6 +17,8 @@
 
     python3 chip_smoke.py --dp-cards         # phases 1-2, then data
                                              # parallelism over every card
+                                             # (NCCL, the chained step
+                                             # graphed on each)
 
     python3 chip_smoke.py --bench-only       # phases 1-2 and 14
 
@@ -115,10 +117,22 @@ Phases, in order; any failure exits non-zero:
   13. data parallelism (dp_phase, parallel/sharding.py) on the one card:
      a one-rank NCCL group's trainer against the plain trainer, bit for
      bit, over 3 real steps of configs/synthetic_bench.yaml (then 10 timed
-     steps); two ranks sharing the card over gloo at the bench's full
-     width (2048 global rays, 1024 a rank): one epoch, 10 timed steps
+     steps); the one-rank group's chained step (dp_chain): graphed, a
+     CUDA graph of the step with its all-reduces replayed, against eager
+     over phase 15's two blocks of 10 steps (epochs 100 and 101 from step
+     1000, a sampled refresh in the first), bit for bit under
+     sort_pallas_rows with deterministic algorithms and within phase 15's
+     tolerances under hist_rows and mxu_rows, every kernel of the mode on
+     every graphed step, each graph holding its all-reduces; the eager
+     and the graphed one-rank step beside the plain graphed step, the
+     captures' seconds, pool MB and recorded all-reduces, a traced
+     replayed block (`dp chain:` line; the kernels line's
+     dp_chain_launches); two ranks sharing the card over gloo at the
+     bench's full width (2048 global rays, 1024 a rank): one epoch, 10
+     timed steps
      under hist_rows, a step under each vjp_mode with rank 0's kernel
-     calls as lines step_dp_<mode>_<i>, rank 0's one-rank reference of
+     calls as lines step_dp_<mode>_<i>, two chained blocks (gloo: the
+     graph's body, eager), rank 0's one-rank reference of
      the timed steps (losses at rtol 1e-4, parameters within 2*n*lr), the
      replicas equal; then 2 data-parallel SDS steps of
      configs/synthetic_full.yaml at epoch 300 (a 5,184-ray view a rank, the
@@ -2455,31 +2469,111 @@ def dp_one_rank(device, cfg, ds, n_timed: int = DP_TIMED) -> dict:
             step_ms.append((time.perf_counter() - t0) * 1e3)
         if not _finite([float(loss)]):
             raise AssertionError(f"one-rank run: non-finite loss {loss}")
+        del one
+        chain = dp_chain(red, dev, cfg, ds)
     finally:
         dist.destroy_process_group()
     return {"backend": backend, "bitwise_equal": equal,
             "equal_route": "sort_pallas_rows, deterministic algorithms",
             "control_equal": not control_differs, "losses": losses,
             "dp_real_step_ms": statistics.median(step_ms),
-            "steps_ms": step_ms}
+            "steps_ms": step_ms, "chain": chain}
 
 
-def _count_collectives(fn):
-    """fn() with every all-reduce counted: (its result, {calls, bytes})."""
-    import torch.distributed as dist
-    seen = {"calls": 0, "bytes": 0}
-    real = dist.all_reduce
+# the one-rank group's chained step: (vjp_mode, held bit for bit) - the
+# route whose kernel sums in a fixed order under deterministic algorithms,
+# then the other two routes within phase 15's tolerances; each kernel runs
+# in the graph under its own route
+DP_CHAIN_RUNS = (("sort_pallas_rows", True), ("hist_rows", False),
+                 ("mxu_rows", False))
 
-    def counted(t, *a, **kw):
-        seen["calls"] += 1
-        seen["bytes"] += t.numel() * t.element_size()
-        return real(t, *a, **kw)
 
-    dist.all_reduce = counted
-    try:
-        return fn(), seen
-    finally:
-        dist.all_reduce = real
+def dp_chain(red, device, cfg, ds) -> dict:
+    """Phase 13a's chained step: for each of DP_CHAIN_RUNS an eager and a
+    chained trainer of the one-rank group (NCCL on a card: the chained
+    one replays a graph of the step with its all-reduces; gloo on the
+    CPU: the graph's body, eagerly) from the same seed take phase 15's two
+    blocks (CHAIN_EPOCHS from CHAIN_STEP0: a sampled refresh in the first,
+    two captures) and are compared (chain_compare: bit for bit under
+    sort_pallas_rows with deterministic algorithms, within phase 15's
+    tolerances under hist_rows and mxu_rows); on a card every kernel of
+    the mode ran on
+    every graphed step and each graph holds at least one all-reduce. Then
+    the eager and the graphed one-rank step and the plain trainer's
+    graphed step (no group) from this process, each at CHAIN_EPOCHS[1]
+    (chain_step_ms), and one traced replayed block. The `dp chain:`
+    line's record (dp_phase adds the card)."""
+    import torch
+    from morpheus_tpu_torch.scripts.trace_step import trace_steps
+    cuda = device.type == "cuda"
+    out = {"world": red.world, "backend": red.backend, "runs": {}}
+    for mode, bitwise in DP_CHAIN_RUNS:
+        eager = chain_trainer(device, ds, mode, {}, False, red, cfg)
+        e = chain_blocks(eager, bitwise)
+        graphed = chain_trainer(device, ds, mode, {}, True, red, cfg)
+        g = chain_blocks(graphed, bitwise)
+        if graphed.graphed != cuda or len(g["captures"]) != (
+                len(CHAIN_EPOCHS) if cuda else 0):
+            raise AssertionError(f"dp chain {mode}: graphed "
+                                 f"{graphed.graphed}, captures "
+                                 f"{g['captures']}")
+        cmp = chain_compare(eager, graphed, bitwise=bitwise,
+                            losses=(e["losses"], g["losses"]))
+        n_steps = graphed.global_step - CHAIN_STEP0
+        if cuda:
+            for k, v in g["launches"].items():
+                if (v < n_steps) if k in PATH_KERNELS[mode] else v:
+                    raise AssertionError(f"dp chain {mode}: {k} launched "
+                                         f"{v} times in {n_steps} graphed "
+                                         "steps")
+            if min(c["all_reduces"] for c in g["captures"]) < 1:
+                raise AssertionError(f"dp chain {mode}: a graph without "
+                                     f"its all-reduces: {g['captures']}")
+        run = {"vjp_mode": mode, "deterministic": bitwise,
+               "eager": e, "graphed": g, "compare": cmp}
+        log("dp chain run:", json.dumps(run))
+        if cmp["failed"]:
+            raise AssertionError(f"dp chain {mode}: graphed and eager "
+                                 f"differ in {cmp['failed']}")
+        out["runs"][mode] = run
+        del eager, graphed
+        if cuda:
+            torch.cuda.empty_cache()
+    ms = {}
+    for key, chain, reducer in (("eager", False, red), ("graphed", True, red),
+                                ("plain_graphed", True, None)):
+        tr = chain_trainer(device, ds, "hist_rows", {}, chain, reducer, cfg)
+        ms[key] = chain_step_ms(tr)
+        if key == "graphed":
+            trace = trace_steps(tr, n=tr.config["train"]["real_freq"],
+                                log=log, chained=True)
+            captures = list(tr.captures)
+        del tr
+        if cuda:
+            torch.cuda.empty_cache()
+    out.update({
+        "dp_real_step_ms": {"eager": statistics.median(ms["eager"]),
+                            "graphed": statistics.median(ms["graphed"])},
+        "plain_graphed_step_ms": statistics.median(ms["plain_graphed"]),
+        "steps_ms": ms, "captures": captures,
+        "capture_s": [c["capture_s"] for c in captures],
+        "pool_mb": [c["pool_mb"] for c in captures],
+        "all_reduces_in_graph": [c["all_reduces"] for c in captures],
+        "all_reduce_bytes_in_graph": [c["all_reduce_bytes"]
+                                      for c in captures],
+        "trace": {k: trace.get(k) for k in (
+            "steps", "step_ms_traced", "kernels_per_step",
+            "device_busy_ms_per_step", "device_idle_share")}})
+    return out
+
+
+def _count_collectives(red, fn):
+    """fn() with its all-reduces counted by the reducer, a replayed graph's
+    as its capture recorded them: (its result, {calls, bytes})."""
+    before = red.all_reduces, red.all_reduce_bytes
+    out = fn()
+    return out, {"calls": red.all_reduces - before[0],
+                 "bytes": red.all_reduce_bytes - before[1]}
 
 
 def dp_real(red, device, cfg, ds, n_timed: int = DP_TIMED,
@@ -2532,7 +2626,7 @@ def dp_real(red, device, cfg, ds, n_timed: int = DP_TIMED,
 
     if tr.global_step % cfg["tpu"]["occ_update_every"] == 0:
         tr.global_step += 1
-    _, coll = _count_collectives(lambda: tr.real_step(tr.epoch))
+    _, coll = _count_collectives(red, lambda: tr.real_step(tr.epoch))
     n_bucket = sum(p.numel() for p in tr.params) + 1
     bucket = torch.zeros(n_bucket, device=device)
     bucket_ms = []
@@ -2567,6 +2661,7 @@ def dp_real(red, device, cfg, ds, n_timed: int = DP_TIMED,
             raise AssertionError(f"data-parallel step under {mode} launched "
                                  f"{counts}")
     set_vjp_mode(tr, "hist_rows")
+    chain = dp_chain_block(red, tr)
     equal = sharding.replicas_equal(tr)
     if not equal:
         raise AssertionError("data-parallel ranks' states differ")
@@ -2580,7 +2675,7 @@ def dp_real(red, device, cfg, ds, n_timed: int = DP_TIMED,
            "allreduce_bytes_per_step": coll["bytes"],
            "grad_bucket_bytes": 4 * n_bucket,
            "grad_bucket_allreduce_ms": statistics.median(bucket_ms),
-           "replicas_equal": equal, "peak_mem_gb": peak}
+           "replicas_equal": equal, "peak_mem_gb": peak, "chain": chain}
     if rank0:
         # the one-rank reference: the same state, draws and global batches
         ref = Trainer(dict(cfg, tpu=dict(cfg["tpu"], data_parallel=1)), ds,
@@ -2621,6 +2716,36 @@ def dp_real(red, device, cfg, ds, n_timed: int = DP_TIMED,
     del tr
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    return out
+
+
+def dp_chain_block(red, tr) -> dict:
+    """Two chained epochs of one iteration of tr, a rank of `red` (its
+    virtual_freq real slots and real_freq chained steps each): on NCCL
+    ranks replays of a graph with its all-reduces, under gloo its body
+    run eagerly; the second block's ms a step, each rank's collectives a
+    step, and the captures. A graphed rank must have captured, each graph
+    holding at least one all-reduce."""
+    want = tr.device.type == "cuda" and red.backend == "nccl"
+    if not tr.chain or tr.graphed != want:
+        raise AssertionError(f"rank {red.rank}: chain_steps {tr.chain}, "
+                             f"graphed {tr.graphed} under {red.backend}")
+    tr.train_one_epoch(n_iters=1)
+    tr_cfg = tr.config["train"]
+    steps = tr_cfg["virtual_freq"] + tr_cfg["real_freq"]
+    reset_counts()
+    _sync(tr.device)
+    t0 = time.perf_counter()
+    _, coll = _count_collectives(red, lambda: tr.train_one_epoch(n_iters=1))
+    _sync(tr.device)
+    out = {"graphed": tr.graphed, "steps": steps,
+           "step_ms": (time.perf_counter() - t0) * 1e3 / steps,
+           "collectives_per_step": coll["calls"] / steps,
+           "launches": read_counts(), "captures": list(tr.captures)}
+    if tr.graphed and (not tr.captures or min(
+            c["all_reduces"] for c in tr.captures) < 1):
+        raise AssertionError(f"rank {red.rank}: the chained data-parallel "
+                             f"step captured {tr.captures}")
     return out
 
 
@@ -2787,7 +2912,11 @@ def dp_phase(device, workdir: str) -> tuple:
     real_cfg, sds_cfg = dp_configs()
     one_cfg = dict(real_cfg, tpu=dict(real_cfg["tpu"], data_parallel=1))
     one = dp_one_rank(device, one_cfg, load_synthetic(one_cfg))
+    chain = one.pop("chain")
+    chain["card"] = card_line()
     log("dp one rank:", json.dumps(one))
+    log("dp chain:", json.dumps({k: v for k, v in chain.items()
+                                 if k != "runs"}))
     out_dir = os.path.join(workdir, "dp")
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
@@ -2801,11 +2930,15 @@ def dp_phase(device, workdir: str) -> tuple:
                             "world_2": result["dp_real_step_ms"]},
         "world_1_backend": one["backend"],
         "world_1_bitwise_equal": one["bitwise_equal"],
+        "dp_chain_step_ms": {
+            "world_1": chain["dp_real_step_ms"]["graphed"],
+            f"world_{DP_WORLD}": result["chain"]["step_ms"]},
         "ranks_s": ranks_s, "cli_refusal": cli})
     log("dp:", json.dumps(result))
     log("dp sds:", json.dumps(sds_line))
     log(f"phase 13 seconds: {time.perf_counter() - t_phase:.1f}")
     result["sds"] = sds_line
+    result["one_rank_chain"] = chain
     return result, rows
 
 
@@ -2843,7 +2976,14 @@ def dp_summary(out_dir: str, world: int) -> tuple:
         "param_limit": r0["param_limit"],
         "replicas_equal": all(r["replicas_equal"] for r in real),
         "peak_mem_gb": [r["peak_mem_gb"] for r in real],
-        "launches": [r["launches"] for r in real], "card": card_line()}
+        "launches": [r["launches"] for r in real],
+        "chain": {"graphed": r0["chain"]["graphed"],
+                  "step_ms": [r["chain"]["step_ms"] for r in real],
+                  "collectives_per_step":
+                      r0["chain"]["collectives_per_step"],
+                  "launches": [r["chain"]["launches"] for r in real],
+                  "captures": r0["chain"]["captures"]},
+        "card": card_line()}
     sds_line = {
         "world": world, "epoch": sds[0]["epoch"],
         "rays_per_view": sds[0]["rays_per_view"],
@@ -2862,7 +3002,9 @@ def dp_summary(out_dir: str, world: int) -> tuple:
 def dp_cards_phase(workdir: str) -> dict:
     """Data parallelism over every visible card (`--dp-cards`; not part of
     the one-card run): dp_rank on one NCCL rank a card (the bench's 2048
-    global rays split over them; one SDS view a card), then the CLI on
+    global rays split over them, the chained blocks replaying a graph on
+    each card, the replicas checked equal after them; one SDS view a
+    card), then the CLI on
     configs/synthetic_bench.yaml cut in depth (cli_phase) with
     tpu.data_parallel = the card count (`dp cards:`, `dp cards sds:` and
     `dp cli:` lines)."""
@@ -3043,16 +3185,21 @@ CHAIN_OCC_REL = 1e-3
 CHAIN_TIMED = 10
 
 
-def chain_trainer(device, ds, mode: str, tpu: dict, chain: bool):
-    """A Trainer of configs/synthetic_bench.yaml under `mode` and the tpu
-    overrides, tpu.chain_steps `chain`, one iteration an epoch, at global
-    step CHAIN_STEP0."""
+def chain_trainer(device, ds, mode: str, tpu: dict, chain: bool,
+                  reducer=None, cfg=None):
+    """A Trainer of cfg (by default configs/synthetic_bench.yaml) under
+    `mode` and the tpu overrides, tpu.chain_steps `chain`, one iteration
+    an epoch, at global step CHAIN_STEP0; with `reducer`, a rank of its
+    process group."""
+    import copy
+
     from morpheus_tpu_torch.config import load_config
     from morpheus_tpu_torch.train.trainer import Trainer
-    cfg = load_config(os.path.join(HERE, "configs", "synthetic_bench.yaml"))
+    cfg = copy.deepcopy(cfg) if cfg is not None else load_config(
+        os.path.join(HERE, "configs", "synthetic_bench.yaml"))
     cfg["tpu"].update(vjp_mode=mode, chain_steps=chain, **tpu)
     cfg["train"]["n_iters"] = 1
-    tr = Trainer(cfg, ds, device=device)
+    tr = Trainer(cfg, ds, device=device, reducer=reducer)
     tr.global_step = tr.host_step = CHAIN_STEP0
     return tr
 
@@ -3071,12 +3218,12 @@ def chain_blocks(tr, deterministic: bool) -> dict:
         with warnings.catch_warnings():
             # cumsum warns; its per-ray scans are short rows
             warnings.simplefilter("ignore", UserWarning)
-            torch.cuda.synchronize()
+            _sync(tr.device)
             t0 = time.perf_counter()
             for epoch in CHAIN_EPOCHS:
                 tr.epoch = epoch
                 losses.append(tr.train_one_epoch())
-            torch.cuda.synchronize()
+            _sync(tr.device)
     finally:
         torch.use_deterministic_algorithms(False)
     return {"losses": losses, "seconds": time.perf_counter() - t0,
@@ -3142,20 +3289,7 @@ def chain_timing(device, ds) -> dict:
     out = {}
     for chain in (False, True):
         tr = chain_trainer(device, ds, "hist_rows", {}, chain)
-        tr.epoch = CHAIN_EPOCHS[1]
-        tr._set_levels(tr._active_levels())
-        step = tr.chained_real_step if chain else tr.real_step
-        every = tr.config["tpu"]["occ_update_every"]
-        step(tr.epoch)
-        times = []
-        for _ in range(CHAIN_TIMED):
-            if tr.global_step % every == 0:
-                tr.global_step += 1
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(tr.epoch)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
+        times = chain_step_ms(tr)
         tr.train_one_epoch()                          # settles
         tr.config["train"]["n_iters"] = 10
         torch.cuda.synchronize()
@@ -3174,6 +3308,28 @@ def chain_timing(device, ds) -> dict:
         torch.cuda.empty_cache()
     out["card"] = card_line()
     return out
+
+
+def chain_step_ms(tr, n: int = CHAIN_TIMED) -> list:
+    """The ms of n steps of tr at CHAIN_EPOCHS[1] (12 levels), chained
+    (chained_real_step) under tpu.chain_steps, else eager (real_step), each
+    ending in a synchronize, after one that settles (a capture when
+    chained); steps on the refresh cadence skipped."""
+    tr.epoch = CHAIN_EPOCHS[1]
+    tr._set_levels(tr._active_levels())
+    step = tr.chained_real_step if tr.chain else tr.real_step
+    every = tr.config["tpu"]["occ_update_every"]
+    step(tr.epoch)
+    times = []
+    for _ in range(n):
+        if tr.global_step % every == 0:
+            tr.global_step += 1
+        _sync(tr.device)
+        t0 = time.perf_counter()
+        step(tr.epoch)
+        _sync(tr.device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
 
 
 def chain_phase(device, ds) -> dict:
@@ -3272,7 +3428,10 @@ def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
     (gather), its launches in each mode's checked calls
     (bench_gather_launches) and its largest call on bench_gather's stream
     (bench_gather_case); with phase 15's result (chain), its launches in
-    each run's graphed blocks, each replay counted (chain_launches)."""
+    each run's graphed blocks, each replay counted (chain_launches); with
+    phase 13's chained records, its launches in the one-rank group's
+    graphed blocks under each mode and in each rank's chained block
+    (dp_chain_launches)."""
 
     def entry(name, replaces, mode):
         # the kernel's numbers at its largest captured call of a step under
@@ -3313,6 +3472,11 @@ def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
                        for m in PATH_KERNELS},
                     "sds": [r[name] for r in dp["sds"]["launches"]]},
                 "dp_case": largest_case(name, f"step_dp_{mode}_"),
+                **({"dp_chain_launches": {
+                    **{m: r["graphed"]["launches"][name] for m, r in
+                       dp["one_rank_chain"]["runs"].items()},
+                    "ranks": [r[name] for r in dp["chain"]["launches"]]}}
+                   if "one_rank_chain" in dp else {}),
                 **({"bench_gather_launches": {
                     m: r["launches"][name] for m, r in gather.items()},
                     "bench_gather_case": largest_case(name, "bench_gather_")}
@@ -3332,11 +3496,11 @@ def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
                                     "bound_by", "library_ms") if k in row}
 
     out = {"kernels": [
-        entry("level_histogram", "morpheus_tpu/ops/hist_pallas.py:105",
+        entry("level_histogram", "morpheus_tpu/ops/hist_pallas.py:106",
               "hist_rows"),
-        entry("segment_sum_sorted", "morpheus_tpu/ops/segsum_pallas.py:81",
+        entry("segment_sum_sorted", "morpheus_tpu/ops/segsum_pallas.py:82",
               "sort_pallas_rows"),
-        entry("level_gather", "morpheus_tpu/ops/gather_pallas.py:79",
+        entry("level_gather", "morpheus_tpu/ops/gather_pallas.py:80",
               "mxu_rows")]}
     # the mesh export's call under mxu_rows (phase 9) and the viewer's
     # per-frame query (phase 12)

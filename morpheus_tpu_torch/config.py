@@ -155,7 +155,8 @@ DEFAULTS: dict[str, dict[str, Any]] = {
                                      # (parallel/sharding.py)
         "chain_steps": True,         # the epoch loop's real steps replay
                                      # a CUDA graph of the step (one
-                                     # process; the CPU runs its body)
+                                     # process or NCCL ranks; the CPU and
+                                     # gloo ranks run its body)
         "remat_virtual": True,       # recompute the virtual render and the
                                      # VAE encoder in the backward
                                      # (torch.utils.checkpoint)

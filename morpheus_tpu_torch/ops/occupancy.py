@@ -185,7 +185,11 @@ def compact_samples(t_starts, t_ends, mask, score, budget: int,
     place in the global one. `rays` (parallel.sharding.Rows; None: one
     process) places the N rays in the global batch: the top-k runs over the
     whole batch's scores and this rank keeps its own rays' samples, a
-    contiguous run of the global stream."""
+    contiguous run of the global stream, at the fixed size of rows
+    (Rows.split_sorted): its padding entries are inert, not valid, at t 0
+    of this rank's last ray (a copy of a real ray), and past every segment
+    (starts[N] counts the members; volrender.Segments(padded=True) sends
+    them to no ray's slot)."""
     N, K = mask.shape
     if rays is None:
         rays = LOCAL.rows(N)
@@ -194,11 +198,16 @@ def compact_samples(t_starts, t_ends, mask, score, budget: int,
                                     int(budget))).values
     perm, rows = rays.split_sorted(perm, K)
     ray_id = torch.div(perm, K, rounding_mode="floor")
-    return {
-        "ray_id": ray_id,
-        "t_starts": t_starts.reshape(-1).index_select(0, perm),
-        "t_ends": t_ends.reshape(-1).index_select(0, perm),
-        "valid": mask.reshape(-1).index_select(0, perm),
-        "starts": volrender.segment_starts(ray_id, N),
-        "rows": rows,
-    }
+    t_starts = t_starts.reshape(-1).index_select(0, perm)
+    t_ends = t_ends.reshape(-1).index_select(0, perm)
+    valid = mask.reshape(-1).index_select(0, perm)
+    member = rows.members()
+    if member is None:
+        starts = volrender.segment_starts(ray_id, N)
+    else:
+        t_starts = torch.where(member, t_starts, 0.0)
+        t_ends = torch.where(member, t_ends, 0.0)
+        valid = valid & member
+        starts = volrender.segment_starts(torch.where(member, ray_id, N), N)
+    return {"ray_id": ray_id, "t_starts": t_starts, "t_ends": t_ends,
+            "valid": valid, "starts": starts, "rows": rows}

@@ -21,26 +21,39 @@ def segment_starts(ray_id: torch.Tensor, num_rays: int) -> torch.Tensor:
 
 class Segments:
     """Where each sample of a ray-sorted (B,) stream sits in the dense
-    (N, K) per-ray layout."""
+    (N, K) per-ray layout. A `padded` stream (occupancy.compact_samples
+    under a process group) ends in entries past its last segment,
+    starts[N] onwards: they go to a slot past the layout, dropped."""
 
-    def __init__(self, ray_id: torch.Tensor, starts: torch.Tensor, K: int):
+    def __init__(self, ray_id: torch.Tensor, starts: torch.Tensor, K: int,
+                 padded: bool = False):
         self.ray_id, self.starts, self.K = ray_id, starts, int(K)
         self.N = starts.shape[0] - 1
-        self.slot = ray_id * self.K + (
-            torch.arange(ray_id.shape[0], device=ray_id.device)
-            - starts[ray_id])
+        self.padded = padded
+        i = torch.arange(ray_id.shape[0], device=ray_id.device)
+        self.slot = ray_id * self.K + (i - starts[ray_id])
+        if padded:
+            self.slot = torch.where(i < starts[-1], self.slot,
+                                    self.N * self.K)
 
     def dense(self, x: torch.Tensor) -> torch.Tensor:
         """(B, ...) -> (N, K, ...), zeros where a ray has fewer samples."""
-        z = x.new_zeros((self.N * self.K,) + x.shape[1:])
-        return z.index_copy(0, self.slot, x).reshape(
-            (self.N, self.K) + x.shape[1:])
+        size = self.N * self.K
+        z = x.new_zeros((size + self.padded,) + x.shape[1:])
+        z = z.index_copy(0, self.slot, x)
+        if self.padded:
+            z = z[:size]
+        return z.reshape((self.N, self.K) + x.shape[1:])
 
 
 def seg_cumsum(x: torch.Tensor, seg: Segments) -> torch.Tensor:
-    """Inclusive per-ray cumulative sum of x (B,) or (B, C)."""
-    cs = torch.cumsum(seg.dense(x), dim=1)
-    return cs.reshape((seg.N * seg.K,) + x.shape[1:]).index_select(0, seg.slot)
+    """Inclusive per-ray cumulative sum of x (B,) or (B, C) (0 at a padded
+    stream's padding)."""
+    cs = torch.cumsum(seg.dense(x), dim=1).reshape(
+        (seg.N * seg.K,) + x.shape[1:])
+    if seg.padded:
+        cs = torch.cat([cs, cs.new_zeros((1,) + x.shape[1:])])
+    return cs.index_select(0, seg.slot)
 
 
 def flat_segment_sum(x: torch.Tensor, seg: Segments) -> torch.Tensor:

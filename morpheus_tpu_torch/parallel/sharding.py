@@ -10,8 +10,9 @@ seeded source, and so keeps the parameters, the optimizer's slots, the EMA
 and the occupancy grid replicated, bit for bit (replicas_equal checks it).
 
 - A real step (_sharded_real_body, make_sharded_real_step) splits the
-  global ray batch: rank r takes its contiguous block of rows (shard_rows,
-  the layout of JAX's P("rays")). Its loss is its share of the global
+  global ray batch: rank r takes its contiguous block of rows
+  (shard_batch_stacked, the layout of JAX's P(None, "rays") on a stack of
+  batches). Its loss is its share of the global
   batch's loss: each term's numerator over the global denominator
   (Reducer.total, Reducer.mean), the terms on the parameters alone on rank
   0 only, and each selection under a sample budget taken over the global
@@ -24,17 +25,26 @@ and the occupancy grid replicated, bit for bit (replicas_equal checks it).
   fold_in of the device index), and the gradients and the loss are the
   mean over the views.
 
+Every selection under a process group has a fixed size, its capacity,
+and reads nothing back to the host (Rows.select, Rows.split_sorted): its
+members first, then inert padding, with the count of members on the card.
+So the data-parallel real step runs on a card as a replayed CUDA graph with
+its all-reduces inside (train/trainer.py, tpu.chain_steps), as the JAX
+package's make_sharded_real_steps_chained runs real_freq sharded steps in
+one lax.scan over a stack of host batches (shard_batch_stacked). The
+capacity is the exact worst case, so nothing is ever cut: the
+compaction's is min(global budget, this rank's rays x K), a subset's
+min(its budget, its stream's capacity). At world 1 nothing is padded; at
+world W >= 2 a rank evaluates the field on up to the global budget's
+entries, about 1/W of them its own.
+
 With no process group (Reducer()) every collective is the identity and the
 step is the single-device one; with a group of one rank the collectives
 run and return their inputs' values.
 
 Not ported: make_mesh and replicate_state (the process group and the
-broadcast above), shard_batch_stacked and make_sharded_real_steps_chained
-(the chained sharded step: Rows.select and Rows.split_sorted read back to
-the host, which a CUDA graph cannot hold, so under a process group the
-trainer runs the eager step whatever tpu.chain_steps says, and says so),
-and the sharded mesh queries the JAX module's docstring names (no JAX code
-shards them).
+broadcast above), and the sharded mesh queries the JAX module's docstring
+names (no JAX code shards them).
 """
 from __future__ import annotations
 
@@ -59,6 +69,10 @@ class Reducer:
         self.group = group
         self.rank = 0 if group is None else dist.get_rank(group)
         self.world = 1 if group is None else dist.get_world_size(group)
+        self.backend = None if group is None else dist.get_backend(group)
+        # the all-reduces issued and their bytes, counted on the host where
+        # each is called (a replayed graph adds those its capture recorded)
+        self.all_reduces = self.all_reduce_bytes = 0
 
     @property
     def active(self) -> bool:
@@ -83,12 +97,18 @@ class Reducer:
                 "morpheus_tpu_torch.parallel.sharding.launch")
         return Reducer(dist.group.WORLD)
 
+    def all_reduce(self, x: torch.Tensor) -> None:
+        """x summed over the ranks, in place, counted."""
+        self.all_reduces += 1
+        self.all_reduce_bytes += x.numel() * x.element_size()
+        dist.all_reduce(x, group=self.group)
+
     def total(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over the ranks of x, a count that carries no gradient."""
         if not self.active:
             return x
         x = x.detach().clone()
-        dist.all_reduce(x, group=self.group)
+        self.all_reduce(x)
         return x
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
@@ -103,7 +123,7 @@ class Reducer:
             return grads, loss
         flat = torch.cat([g.reshape(-1).float() for g in grads]
                          + [loss.detach().reshape(1).float()])
-        dist.all_reduce(flat, group=self.group)
+        self.all_reduce(flat)
         if mean:
             flat /= self.world
         parts = flat.split([g.numel() for g in grads] + [1])
@@ -148,10 +168,14 @@ class Rows:
     """This rank's entries of a 1-D index space of `total` entries spread
     over the ranks: their global positions `index` (a slice, or a long
     tensor), in this rank's order. Without a process group the rank holds
-    every entry in order."""
+    every entry in order. A selection's Rows (select, split_sorted) is
+    `padded`: it has a fixed size, its members first, then padding at
+    global position `total`, a slot that gather drops."""
 
-    def __init__(self, red: Reducer, total: int, index):
+    def __init__(self, red: Reducer, total: int, index,
+                 padded: bool = False):
         self.red, self.total, self.index = red, int(total), index
+        self.padded = padded
 
     def __len__(self) -> int:
         if isinstance(self.index, slice):
@@ -164,11 +188,18 @@ class Rows:
                                 device=device)
         return self.index
 
+    def members(self):
+        """Which entries are members, a bool tensor (None: all are)."""
+        return self.index < self.total if self.padded else None
+
     def take(self, full: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of a global (total, ...) array."""
+        """This rank's rows of a global (total, ...) array (at padding a
+        copy of its last row)."""
         if isinstance(self.index, slice):
             return full[self.index]
-        return full.index_select(0, self.index)
+        i = self.index.clamp(max=self.total - 1) if self.padded \
+            else self.index
+        return full.index_select(0, i)
 
     def draws(self, draws):
         """A draw source whose sites draw the global (total, ...) values
@@ -179,14 +210,15 @@ class Rows:
         """The global (total, ...) array of which x holds this rank's rows:
         each rank's rows scattered into zeros, summed over the ranks (an
         all-gather for a layout contiguous or not; exact, every entry has
-        one rank)."""
+        one rank; padding lands in a slot past `total`, cut off)."""
         if not self.red.active:
             return x
         dtype = torch.int32 if x.dtype == torch.bool else x.dtype
-        z = torch.zeros((self.total,) + tuple(x.shape[1:]), dtype=dtype,
-                        device=x.device)
+        z = torch.zeros((self.total + self.padded,) + tuple(x.shape[1:]),
+                        dtype=dtype, device=x.device)
         z[self.index] = x.to(dtype)
-        dist.all_reduce(z, group=self.red.group)
+        z = z[:self.total]
+        self.red.all_reduce(z)
         return z.bool() if x.dtype == torch.bool else z
 
     def scaled(self, k: int) -> "Rows":
@@ -207,29 +239,47 @@ class Rows:
     def select(self, sel: torch.Tensor):
         """This rank's members of a global selection `sel` (global
         positions, in the selection's order): (their local positions, the
-        Rows of their places in the selection)."""
+        Rows of their places in the selection). Under a process group both
+        have the fixed size min(len(sel), len(self)): the members in the
+        selection's order, then padding at local position 0 (a copy of a
+        real entry, for the caller to mask out: Rows.members)."""
         k = sel.shape[0]
         if not self.red.active:
             return sel, Rows(self.red, k, slice(0, k))
-        inv = torch.full((self.total,), -1, dtype=torch.long,
-                         device=sel.device)
-        inv[self.index] = torch.arange(len(self), device=sel.device)
+        dev = sel.device
+        cap = min(k, len(self))
+        inv = torch.full((self.total + 1,), -1, dtype=torch.long, device=dev)
+        inv[self.global_index(dev)] = torch.arange(len(self), device=dev)
         loc = inv[sel]
-        pos = (loc >= 0).nonzero()[:, 0]
-        return loc[pos], Rows(self.red, k, pos)
+        member = loc >= 0
+        # the members' places in the selection, packed to the front in
+        # order (a member's rank among the members is its slot; padding
+        # goes to slot cap, cut off)
+        slot = torch.where(member, torch.cumsum(member, 0) - 1, cap)
+        pos = torch.full((cap + 1,), k, dtype=torch.long, device=dev)
+        pos = pos.index_copy(0, slot, torch.arange(k, device=dev))[:cap]
+        local = torch.where(pos < k, loc[pos.clamp(max=k - 1)], 0)
+        return local, Rows(self.red, k, pos, padded=True)
 
     def split_sorted(self, perm: torch.Tensor, k: int):
         """This rank's run of an ascending stream `perm` of global
         positions in the layout scaled(k): (its local positions, the Rows
-        of the run in the stream)."""
+        of the run in the stream). Under a process group both have the
+        fixed size min(len(perm), len(self)*k), the run found on the card
+        (searchsorted), then padding at this rank's last local position
+        (the stream stays ascending)."""
         n = perm.shape[0]
         if not self.red.active:
             return perm, Rows(self.red, n, slice(0, n))
         a, b = self.index.start * k, self.index.stop * k
-        lo, hi = torch.searchsorted(
-            perm, torch.tensor([a, b], dtype=perm.dtype,
-                               device=perm.device)).tolist()
-        return perm[lo:hi] - a, Rows(self.red, n, slice(lo, hi))
+        lo = torch.searchsorted(perm, a)
+        hi = torch.searchsorted(perm, b)
+        src = lo + torch.arange(min(n, b - a), device=perm.device)
+        member = src < hi
+        local = torch.where(member, perm[src.clamp(max=n - 1)] - a,
+                            b - a - 1)
+        return local, Rows(self.red, n, torch.where(member, src, n),
+                           padded=True)
 
 
 class _RowDraws:
@@ -306,15 +356,16 @@ def host_sample_real_batch(rng: np.random.Generator, data: dict,
     return batch, bg_color
 
 
-def shard_rows(batch: dict, rank: int, world: int) -> dict:
-    """Each array's contiguous block `rank` of `world` along its leading
-    axis; an array whose leading axis does not divide stays whole."""
+def shard_batch_stacked(batch: dict, rank: int, world: int) -> dict:
+    """This rank's rows of a stack of batches (leading axis n, the ray axis
+    second): each array's contiguous block `rank` of `world` along its
+    second axis, the layout of the JAX package's chained scan input; an
+    array whose second axis does not divide stays whole."""
     out = {}
     for k, v in batch.items():
-        n = np.shape(v)[0] if np.ndim(v) else 0
-        if np.ndim(v) >= 1 and n % world == 0:
-            b = n // world
-            out[k] = v[rank * b:(rank + 1) * b]
+        if np.ndim(v) >= 2 and np.shape(v)[1] % world == 0:
+            b = np.shape(v)[1] // world
+            out[k] = v[:, rank * b:(rank + 1) * b]
         else:
             out[k] = v
     return out

@@ -102,13 +102,17 @@ def _subset_sel(draws, name: str, mask: torch.Tensor, budget: int, rows):
     """A uniform random subset of `budget` of the entries where mask is set
     (random score, top-k), taken over the global index space of `rows`
     (sharding.Rows: mask holds this rank's entries): (this rank's members,
-    their Rows in the subset), or (None, rows) when the budget keeps
-    everything."""
+    their Rows in the subset, mask at them), or (None, rows, mask) when
+    the budget keeps everything. Under a process group the members have a
+    fixed size (Rows.select): padding repeats a real entry and its mask is
+    false, so that each consumer's masked terms take nothing from it."""
     B = rows.total
     if not budget or budget >= B:
-        return None, rows
+        return None, rows, mask
     score = torch.where(rows.gather(mask), draws.uniform(name, (B,)), -1.0)
-    return rows.select(occupancy.top_k_indices(score, budget))
+    sel, sel_rows = rows.select(occupancy.top_k_indices(score, budget))
+    m, member = _take(mask, sel), sel_rows.members()
+    return sel, sel_rows, m if member is None else m & member
 
 
 def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
@@ -151,7 +155,7 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
               "rows": rays.scaled(K)}
     ray_id, valid = cs["ray_id"], cs["valid"]
     stream = cs["rows"]           # the samples' places in the global stream
-    seg = volrender.Segments(ray_id, cs["starts"], K)
+    seg = volrender.Segments(ray_id, cs["starts"], K, padded=stream.padded)
 
     light_d = safe_normalize(rays_o + draws.normal("light", (3,)))
     t_mid = 0.5 * (cs["t_starts"] + cs["t_ends"])
@@ -170,8 +174,8 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
                     and field.spec.normal_mode == "analytic")
     s_sel = xp = n_p = None
     if merge_smooth:
-        s_sel, s_rows = _subset_sel(draws, "smooth_sel", valid,
-                                    rcfg.smooth_budget * n_rays, stream)
+        s_sel, s_rows, v_s = _subset_sel(draws, "smooth_sel", valid,
+                                         rcfg.smooth_budget * n_rays, stream)
         x_s = _take(x_flat, s_sel)
         xp = x_s + s_rows.draws(draws).normal("perturb", tuple(x_s.shape)) \
             * rcfg.smoothness_std
@@ -216,12 +220,12 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
             # 714-741), on a uniform subset of the valid samples under
             # smooth_budget (an unbiased estimate of the same mean)
             if not merge_smooth:
-                s_sel, s_rows = _subset_sel(draws, "smooth_sel", valid,
-                                            rcfg.smooth_budget * n_rays,
-                                            stream)
+                s_sel, s_rows, v_s = _subset_sel(
+                    draws, "smooth_sel", valid, rcfg.smooth_budget * n_rays,
+                    stream)
             s_draws = s_rows.draws(draws)
-            x_s, t_s, n_s, v_s = (_take(a, s_sel) for a in (
-                x_flat, t_flat, normals, valid))
+            x_s, t_s, n_s = (_take(a, s_sel) for a in (x_flat, t_flat,
+                                                        normals))
             d_s = None if deform is None else _take(deform, s_sel)
             if not merge_smooth:
                 if rcfg.normal_dir:
@@ -331,10 +335,9 @@ def _band_reuse_normal_smoothness(field: Field, draws, x_flat, t_flat,
     depth_r = depth.detach()[ray_id]
     in_band = (valid & (torch.abs(t_mid - depth_r) < 0.5 * rcfg.trunc)
                & (torch.linalg.norm(x_flat, dim=-1) < rcfg.outside_radius))
-    sel, b_rows = _subset_sel(draws, "band_sel", in_band,
-                              rcfg.band_budget * n_rays, stream)
-    x_b, t_b, n1, m_b = (_take(a, sel) for a in (x_flat, t_flat, normals,
-                                                   in_band))
+    sel, b_rows, m_b = _subset_sel(draws, "band_sel", in_band,
+                                   rcfg.band_budget * n_rays, stream)
+    x_b, t_b, n1 = (_take(a, sel) for a in (x_flat, t_flat, normals))
     w = _ortho_normal_dir(b_rows.draws(draws).uniform(
         "band_phase", (n1.shape[0], 1)), n1)
     n2, _ = field.normal(x_b + w * rcfg.smoothness_std, t=t_b,
@@ -372,10 +375,10 @@ def _surface_band_normal_smoothness(field: Field, draws, rays_o, rays_d,
            * rays_d[None] + rays_o[None]).reshape(-1, 3)         # (P*N, 3)
     ts = rays_t[None].expand((P,) + tuple(rays_t.shape)).reshape(-1, 1)
     in_band = torch.linalg.norm(pts, dim=-1) < rcfg.outside_radius
-    sel, l_rows = _subset_sel(draws, "ladder_sel", in_band,
-                              rcfg.band_budget * rays.total,
-                              rays.repeated(P, depth.device))
-    pts, ts, in_band = (_take(a, sel) for a in (pts, ts, in_band))
+    sel, l_rows, in_band = _subset_sel(draws, "ladder_sel", in_band,
+                                       rcfg.band_budget * rays.total,
+                                       rays.repeated(P, depth.device))
+    pts, ts = (_take(a, sel) for a in (pts, ts))
     n1, _ = field.normal(pts, t=ts, max_level=max_level)
     w = _ortho_normal_dir(l_rows.draws(draws).uniform(
         "ladder_phase", (n1.shape[0], 1)), n1)

@@ -22,6 +22,14 @@ from morpheus_tpu_torch import bench
 # the port's hand-written kernels, by the names their wrappers launch
 KERNELS = ("level_histogram", "level_gather", "segment_sum_sorted")
 
+# idle seconds on the card at each end of a traced window: the profiler
+# drops a device record whose time, mapped onto the host's clock, falls
+# outside the window, and in a process that has run for minutes that
+# mapping can place a window's last kernels after its end (a block of
+# replayed steps lost ~550 of its ~30,500 kernels so, with the last step's
+# histograms; an H100 run)
+MARGIN_S = 0.05
+
 
 def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
@@ -57,7 +65,9 @@ def trace_steps(trainer, n: int = 5, top: int = 8, log=bench.log,
     activities = [ProfilerActivity.CPU]
     if cuda:
         activities.append(ProfilerActivity.CUDA)
+    margin = MARGIN_S if cuda else 0.0
     with profile(activities=activities) as prof:
+        time.sleep(margin)
         t0 = time.perf_counter()
         for _ in range(n):
             if trainer.global_step % every == 0:
@@ -65,6 +75,7 @@ def trace_steps(trainer, n: int = 5, top: int = 8, log=bench.log,
             step(trainer.epoch)
         bench.sync(trainer.device)
         window_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(margin)
     if cuda:
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         kern = [(e, (e.time_range.end - e.time_range.start) / 1e3)

@@ -29,17 +29,24 @@ and loss weights from device buffers (schedule.StepScalars) where the
 JAX step reads its traced epoch; the occupancy refresh stays outside the
 graph, on the host's cadence, and writes the grid in place, as does every
 other writer of a tensor the graph reads. On the CPU the same body runs
-eagerly (the graph's plain twin). chain_steps false, and data
-parallelism (whose step reads back to the host), run the eager step.
+eagerly (the graph's plain twin). chain_steps false runs the eager step.
 
 Under tpu.data_parallel N the trainer is one of N ranks of a process
 group (parallel/sharding.py; the port of trainer.py:114-130 and
 _train_one_epoch_dp, :740-848, of the JAX package): every rank holds the
 same state; a real step draws the global batch on the host
 (sharding.host_sample_real_batch, from a numpy generator as the JAX copy
-does), renders its own rows and sums the gradients of its share of the
-global loss over the ranks; a virtual step renders one view a rank and
-averages. The single-device trainer is the same code with no process group.
+does), copies its own rows into static buffers on the device (_stage),
+renders them with selections of a fixed size (sharding.Rows) and sums the
+gradients of its share of the global loss over the ranks; a virtual step
+renders one view a rank and averages. Under tpu.chain_steps an NCCL rank
+replays a graph of that body, its all-reduces captured with it (the JAX
+package's make_sharded_real_steps_chained); the real_freq steps' host
+batches are drawn together first, as that scan takes them
+(sharding.shard_batch_stacked), and each is copied in before its replay.
+A rank of gloo (on the CPU, or ranks that share a card) runs the same
+body eagerly: gloo's collectives cannot be captured. The single-device
+trainer is the same code with no process group.
 
 A checkpoint (save_ckpt, load_ckpt: the port of morpheus_tpu/train/
 trainer.py:919-955) is a pickle of plain dicts, lists, numpy arrays and
@@ -125,21 +132,24 @@ class _StepGraph:
     current state. The draws' generator is registered with the graph, so
     that each replay advances it as the eager body would. replay() returns
     the loss, a buffer of the graph that the next replay overwrites. A
-    wrapper's launch counter counts its host calls: the capture launches
-    nothing, so its calls are taken back off the counters and added again
-    at each replay. capture_s and pool_mb (the card memory the graph's
-    private pool holds) are measured at capture. The graph holds for the
-    step field's spec and the occupancy state it was captured against,
-    whose tensors are written in place, never rebound, while it lives
-    (fits)."""
+    wrapper's launch counter counts its host calls, and the reducer its
+    all-reduces: the capture runs nothing, so its calls are taken back off
+    the counters and added again at each replay (recorded, all_reduces).
+    capture_s and pool_mb (the card memory the graph's private pool holds)
+    are measured at capture. The graph holds for the step field's spec,
+    the occupancy state and the reducer it was captured against, whose
+    tensors (and the staged batch's) are written in place, never rebound,
+    while it lives (fits)."""
 
     def __init__(self, trainer: "Trainer"):
-        dev = trainer.device
+        dev, red = trainer.device, trainer.dp
         self.spec, self.occ = trainer.step_field.spec, trainer.occ
+        self.red = red
         self.graph = torch.cuda.CUDAGraph()
         if isinstance(trainer.draws, Draws):
             self.graph.register_generator_state(trainer.draws.generator)
         before = [f.launches for f in KERNEL_WRAPPERS]
+        reduces = (red.all_reduces, red.all_reduce_bytes)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
@@ -153,15 +163,20 @@ class _StepGraph:
                                                         before)]
         for f, b in zip(KERNEL_WRAPPERS, before):
             f.launches = b
+        self.all_reduces = red.all_reduces - reduces[0]
+        self.all_reduce_bytes = red.all_reduce_bytes - reduces[1]
+        red.all_reduces, red.all_reduce_bytes = reduces
 
     def fits(self, trainer: "Trainer") -> bool:
         return (self.spec == trainer.step_field.spec
-                and self.occ is trainer.occ)
+                and self.occ is trainer.occ and self.red is trainer.dp)
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
         for f, n in zip(KERNEL_WRAPPERS, self.recorded):
             f.launches += n
+        self.red.all_reduces += self.all_reduces
+        self.red.all_reduce_bytes += self.all_reduce_bytes
         return self.loss
 
 
@@ -230,6 +245,11 @@ class Trainer:
                 for k, v in dataset.device_data(
                     "cpu", scale=config["data"]["known_view_scale"]).items()}
             self._np_rng = np.random.default_rng(int(seed))
+        # this rank's rows of the real batch on the device, written in
+        # place by _stage, and the pinned host buffers it copies from
+        self._batch = self._staging = self._staged = None
+        # host rows drawn ahead (train_one_epoch's block), taken in order
+        self._drawn: list = []
 
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
@@ -239,18 +259,13 @@ class Trainer:
         self.occ = occupancy.init_occupancy(tpu["occ_resolution"], self.device)
         self.scalars = StepScalars(self.curr, self.device)
         self.chain = bool(tpu.get("chain_steps", True))
-        if self.chain and self.dp.active:
-            # the data-parallel step reads its selections back to the host
-            # (parallel/sharding.py Rows), which a graph cannot hold
-            self.chain = False
-            if self.dp.rank == 0:
-                print("tpu.chain_steps: the data-parallel real step runs "
-                      "eagerly (it reads back to the host)", flush=True)
-        # the chained step replays a graph on a card; on the CPU it runs
-        # the graph's body eagerly
-        self.graphed = self.chain and self.device.type == "cuda"
+        # the chained step replays a graph on a card, with its NCCL
+        # all-reduces under a process group; on the CPU and under gloo it
+        # runs the graph's body eagerly
+        self.graphed = (self.chain and self.device.type == "cuda"
+                        and self.dp.backend in (None, "nccl"))
         # one line per capture: {"active_levels", "warmup_s", "capture_s",
-        # "pool_mb", "launches"}
+        # "pool_mb", "launches", "all_reduces", "all_reduce_bytes"}
         self.captures: list = []
         self.global_step = 0
         # optimizer steps of the epoch loop, real and virtual, counted on
@@ -368,21 +383,66 @@ class Trainer:
 
     # ---- losses ----
 
+    def _host_block(self, n: int) -> list:
+        """This rank's rows of the next n global batches, drawn on the host
+        (sharding.host_sample_real_batch from the seed's numpy generator,
+        as the JAX copy draws them, one after another), stacked and split
+        as the JAX package's chained scan takes them
+        (sharding.shard_batch_stacked): n dicts of numpy arrays, the
+        background under "bg"."""
+        tr = self.config["train"]
+        pairs = [sharding.host_sample_real_batch(
+            self._np_rng, self.host_data, self.dataset.num_frames,
+            tr["real_ray_num"]) for _ in range(n)]
+        stack = {k: np.stack([b[k] for b, _ in pairs]) for k in pairs[0][0]}
+        stack["bg"] = np.stack([bg for _, bg in pairs])
+        rows = sharding.shard_batch_stacked(stack, self.dp.rank,
+                                            self.dp.world)
+        return [{k: v[i] for k, v in rows.items()} for i in range(n)]
+
+    def _next_rows(self) -> dict:
+        """This rank's rows of the next host batch: the next of those drawn
+        ahead, else drawn now."""
+        return self._drawn.pop(0) if self._drawn else self._host_block(1)[0]
+
+    def _stage(self, rows: dict) -> None:
+        """Copy this rank's rows of a host batch (_host_block's) into the
+        trainer's batch buffers on the device (self._batch: made at the
+        first call, then written in place; a graph of the step reads them
+        there). On a card through pinned host buffers with copies that do
+        not wait, the pinned buffers written again only once the last
+        copies from them are done."""
+        cuda = self.device.type == "cuda"
+        if self._batch is None:
+            dtypes = {k: torch.long if k == "rays_id"
+                      else torch.from_numpy(np.asarray(v)).dtype
+                      for k, v in rows.items()}
+            self._batch = {k: torch.empty(np.shape(v), dtype=dtypes[k],
+                                          device=self.device)
+                           for k, v in rows.items()}
+            if cuda:
+                self._staging = {k: torch.empty(np.shape(v), dtype=dtypes[k],
+                                                pin_memory=True)
+                                 for k, v in rows.items()}
+                self._staged = torch.cuda.Event()
+        if not cuda:
+            for k, v in rows.items():
+                self._batch[k].copy_(torch.from_numpy(np.asarray(v)))
+            return
+        self._staged.synchronize()
+        for k, v in rows.items():
+            self._staging[k].numpy()[...] = v
+            self._batch[k].copy_(self._staging[k], non_blocking=True)
+        self._staged.record()
+
     def _real_batch(self, draws):
         """A fresh real-view ray batch and its background: (batch,
-        bg_color). Under a process group, this rank's rows of the global
-        batch drawn on the host (sharding.host_sample_real_batch; the JAX
-        copy's data-parallel batch has no real_view_noise)."""
+        bg_color). Under a process group, the batch buffers that _stage
+        wrote (the JAX copy's data-parallel batch has no
+        real_view_noise)."""
         tr = self.config["train"]
         if self.dp.active:
-            batch, bg = sharding.host_sample_real_batch(
-                self._np_rng, self.host_data, self.dataset.num_frames,
-                tr["real_ray_num"])
-            batch["bg"] = bg
-            batch = {k: torch.as_tensor(v, device=self.device)
-                     for k, v in sharding.shard_rows(
-                         batch, self.dp.rank, self.dp.world).items()}
-            batch["rays_id"] = batch["rays_id"].long()
+            batch = dict(self._batch)
             return batch, batch.pop("bg")
         batch = data_lib.sample_real_view_rays(
             draws, self.data, self.dataset.num_frames, tr["real_ray_num"])
@@ -688,10 +748,13 @@ class Trainer:
 
     def real_step(self, epoch, batch=None, bg_color=None) -> torch.Tensor:
         """One real-view optimizer step, on a fresh batch or on `batch` and
-        `bg_color` (this rank's rows under a process group); returns the
-        loss (on the device; of the global batch under a process group,
-        whose gradients are summed over the ranks before the carried
-        virtual-step gradients, already reduced, are added)."""
+        `bg_color`; returns the loss (on the device; of the global batch
+        under a process group, whose gradients are summed over the ranks
+        before the carried virtual-step gradients, already reduced, are
+        added). Under a process group a fresh batch is this rank's rows of
+        the next host batch (_next_rows), staged into the batch buffers."""
+        if self.dp.active and batch is None:
+            self._stage(self._next_rows())
         draws = self.draws
         t_occ = draws.uniform("t_occ", ())
         self._refresh_occ(self.global_step, t_occ, draws)
@@ -736,15 +799,18 @@ class Trainer:
     def chained_real_step(self, epoch) -> torch.Tensor:
         """One real step of the epoch loop under tpu.chain_steps: draw
         t_occ, refresh the occupancy grid if this step is due (eagerly, in
-        place), then the body (_real_body) at `epoch`: on a card a replay
-        of the graph of this active-level count, captured at its first
-        step, which runs the body eagerly on a side stream as its warm-up;
-        on the CPU the body, eagerly. Returns the loss; a replay's is the
-        graph's buffer, which the next replay overwrites, so a caller that
-        keeps it clones it."""
+        place), under a process group stage this rank's rows of the next
+        host batch (_next_rows), then the body (_real_body) at
+        `epoch`: on a card a replay of the graph of this active-level
+        count, captured at its first step, which runs the body eagerly on
+        a side stream as its warm-up; on the CPU and under gloo the body,
+        eagerly. Returns the loss; a replay's is the graph's buffer, which
+        the next replay overwrites, so a caller that keeps it clones it."""
         draws = self.draws
         t_occ = draws.uniform("t_occ", ())
         self._refresh_occ(self.global_step, t_occ, draws)
+        if self.dp.active:
+            self._stage(self._next_rows())
         self.scalars.set(epoch)
         loss = self._replay() if self.graphed else self._real_body()
         self._pending_live = False
@@ -786,7 +852,9 @@ class Trainer:
             "active_levels": self._active_levels(), "warmup_s": warmup_s,
             "capture_s": graph.capture_s, "pool_mb": graph.pool_mb,
             "launches": dict(zip((f.__name__ for f in KERNEL_WRAPPERS),
-                                 graph.recorded))})
+                                 graph.recorded)),
+            "all_reduces": graph.all_reduces,
+            "all_reduce_bytes": graph.all_reduce_bytes})
         return loss, graph
 
     def _grads(self, loss):
@@ -840,7 +908,9 @@ class Trainer:
         runs an SDS step when there is guidance and the host step has
         passed warm_up_steps, a real step otherwise, as the reference's
         does. Under tpu.chain_steps every real step is chained_real_step
-        (its graph replayed on a card), else real_step."""
+        (its graph replayed on a card), else real_step; under a process
+        group the chained real_freq steps' host batches are drawn together
+        before them, as the JAX package's scan takes them."""
         tr, exp = self.config["train"], self.config["exp"]
         n_iters = n_iters or tr.get("n_iters", 10)
         self._set_levels(self._active_levels())
@@ -861,6 +931,8 @@ class Trainer:
                 else:
                     loss = real_step(self.epoch)
                 self.host_step += 1
+            if self.chain and self.dp.active:
+                self._drawn = self._host_block(tr["real_freq"])
             for _ in range(tr["real_freq"]):
                 loss = real_step(self.epoch)
                 self.host_step += 1

@@ -21,7 +21,7 @@ chained step runs the graph's body eagerly (its plain twin):
 (d) the graph cache keys on the active-level count, evicts a superseded
     count, and is dropped on load_state_dict, set_spec and a rebound
     occupancy state (a stub capture on the CPU);
-and the data-parallel trainer's eager step with its one line.
+and a data-parallel (gloo) trainer's chained steps, eager.
 """
 import jax
 import numpy as np
@@ -180,6 +180,7 @@ class StubGraph(trainer_mod._StepGraph):
 
     def __init__(self, tr, made):
         self.spec, self.occ, self.tr = tr.step_field.spec, tr.occ, tr
+        self.red = tr.dp
         self.replays = 0
         made.append(self)
 
@@ -221,26 +222,38 @@ def test_graph_cache_keys_on_active_levels():
 
 
 def test_data_parallel_trainer_steps_eagerly(capsys):
-    """Under a process group (one gloo rank here) the trainer keeps the
-    eager step whatever tpu.chain_steps says, and says so once."""
+    """Under a process group of gloo (one rank here) the trainer keeps
+    tpu.chain_steps: its epoch loop's real steps are chained_real_step,
+    whose body runs eagerly (gloo's collectives cannot be captured), with
+    no line printed, and the run equals its eager twin (chain_steps false)
+    bit for bit."""
     import torch.distributed as dist
     from morpheus_tpu_torch.parallel import sharding
     dist.init_process_group("gloo", init_method=(
         f"tcp://localhost:{sharding.free_port()}"), world_size=1, rank=0)
     try:
-        tiny = {k: dict(v) for k, v in tp.TINY.items()}
-        tiny["tpu"].update(chain_steps=True)
-        cfg = merge_defaults(tiny)
-        tr = Trainer(cfg, load_synthetic(cfg), device="cpu",
-                     reducer=sharding.Reducer(dist.group.WORLD))
-        assert not tr.chain and not tr.graphed
-        out = capsys.readouterr().out
-        assert out.count("tpu.chain_steps") == 1
-        calls = []
-        tr.chained_real_step = lambda epoch: calls.append(epoch)
-        tr.epoch = 3
-        assert np.isfinite(tr.train_one_epoch())
-        assert calls == [] and tr.global_step == 3
+        runs = {}
+        for chain in (True, False):
+            tiny = {k: dict(v) for k, v in tp.TINY.items()}
+            tiny["tpu"].update(chain_steps=chain)
+            cfg = merge_defaults(tiny)
+            tr = Trainer(cfg, load_synthetic(cfg), device="cpu",
+                         reducer=sharding.Reducer(dist.group.WORLD))
+            assert tr.chain == chain and not tr.graphed
+            calls = []
+            step = tr.chained_real_step
+            tr.chained_real_step = lambda epoch: (
+                calls.append(epoch) or step(epoch))
+            tr.epoch = 3
+            runs[chain] = tr, tr.train_one_epoch(), calls
+        assert capsys.readouterr().out == ""
+        (a, la, ca), (b, lb, cb) = runs[True], runs[False]
+        assert ca == [3, 3, 3] and cb == []
+        assert a.global_step == b.global_step == 3
+        assert np.isfinite(la) and la == lb
+        for x, y in zip(a.params + a.optim.mu + a.optim.nu,
+                        b.params + b.optim.mu + b.optim.nu):
+            assert torch.equal(bits(x), bits(y))
     finally:
         dist.destroy_process_group()
 

@@ -320,11 +320,12 @@ def _line(case, **kw):
     return row
 
 
-def _kernels_line(chip_smoke, rows):
+def _kernels_line(chip_smoke, rows, dp_chain=None):
     """kernels_line over `rows` with 7 launches of every kernel in every
     phase but phase 12's CLI (6 histograms) and viewer (300 gathers) and
     phase 13's second rank (5 of each under each mode, 4 in its SDS
-    steps)."""
+    steps); dp_chain: phase 13's chained records, merged into its
+    result."""
     counts = {k: 7 for k in chip_smoke.CAPTURED}
     trace = {f"{k}_ms_per_launch": 0.1 for k in chip_smoke.CAPTURED}
     main = {m: {"launches": counts, "trace": trace}
@@ -335,7 +336,8 @@ def _kernels_line(chip_smoke, rows):
     fives = {k: 5 for k in chip_smoke.CAPTURED}
     dp = {"launches": [{m: counts for m in chip_smoke.PATH_KERNELS},
                        {m: fives for m in chip_smoke.PATH_KERNELS}],
-          "sds": {"launches": [counts, {k: 4 for k in counts}]}}
+          "sds": {"launches": [counts, {k: 4 for k in counts}]},
+          **(dp_chain or {})}
     return chip_smoke.kernels_line(
         rows, main, {"kernel_launches": [counts]},
         {"points": [{"epoch": 300, "launches": counts}]},
@@ -519,6 +521,30 @@ def test_kernels_line_carries_dp_launches_and_case(chip_smoke):
             assert key in case
 
 
+def test_kernels_line_carries_dp_chain_launches(chip_smoke):
+    """Phase 13's chained steps in the kernels line: each kernel's
+    launches in the one-rank group's graphed blocks under each of
+    DP_CHAIN_RUNS' modes, each replay counted, and in each rank's chained
+    block (dp_chain_launches); absent when phase 13 has no such record."""
+    rows = {k: [] for k in chip_smoke.CAPTURED}
+    for k in rows:
+        for mode in chip_smoke.PATH_KERNELS:
+            for prefix in ("step", "step_sds", "step_exact", "step_bf16",
+                           "step_dp"):
+                rows[k].append(_line(f"{prefix}_{mode}_0"))
+    runs = {m: {"graphed": {"launches": {k: 22 + i for k in rows}}}
+            for i, (m, _) in enumerate(chip_smoke.DP_CHAIN_RUNS)}
+    line = _kernels_line(chip_smoke, rows, {
+        "one_rank_chain": {"runs": runs},
+        "chain": {"launches": [{k: 11 for k in rows}, {k: 0 for k in rows}]}})
+    for e in line["kernels"]:
+        assert e["dp_chain_launches"] == {
+            "sort_pallas_rows": 22, "hist_rows": 23, "mxu_rows": 24,
+            "ranks": [11, 0]}
+    assert all("dp_chain_launches" not in e
+               for e in _kernels_line(chip_smoke, rows)["kernels"])
+
+
 def test_dp_only_runs_phase_13_alone(chip_smoke, tmp_path, monkeypatch):
     """--dp-only: phase 13 alone runs and the script returns 0."""
     import sys
@@ -548,6 +574,13 @@ def test_dp_phase_ranks_on_the_cpu(chip_smoke, tmp_path, monkeypatch):
     one = chip_smoke.dp_one_rank(torch.device("cpu"), one_cfg,
                                  load_synthetic(one_cfg), n_timed=1)
     assert one["bitwise_equal"] and one["backend"] == "gloo"
+    # the one-rank group's chained blocks (gloo: the graph's body, eager)
+    chain = one["chain"]
+    assert [m for m, _ in chip_smoke.DP_CHAIN_RUNS] == list(chain["runs"])
+    for run in chain["runs"].values():
+        assert run["compare"]["failed"] == [] and not run["graphed"][
+            "captures"]
+    assert chain["trace"]["steps"] > 0
     real = chip_smoke.tiny_config("hist_rows", {"tpu": {"data_parallel": 2}})
     sds = chip_smoke.tiny_config("hist_rows", {
         "train": {"virtual_freq": 1, "real_freq": 1, "warm_up_steps": 0,
@@ -566,6 +599,9 @@ def test_dp_phase_ranks_on_the_cpu(chip_smoke, tmp_path, monkeypatch):
         assert r["real"]["replicas_equal"] and r["sds"]["replicas_equal"]
         assert r["real"]["collectives_per_step"] == 10
         assert r["real"]["losses"] == r0["losses"]
+        # the chained block's body: the eager step's all-reduces
+        assert r["real"]["chain"]["collectives_per_step"] == 10
+        assert not r["real"]["chain"]["graphed"]
 
 
 # ---- phase 14: the bench and the profilers ----------------------------------
