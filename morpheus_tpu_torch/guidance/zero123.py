@@ -19,6 +19,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from .. import trace
 from ..utils import resolve_device
 from . import clip_vit, schedule, unet, vae
 from .layers import ResBlock, SpatialTransformer
@@ -293,11 +294,12 @@ def sds_loss(g: Zero123Guidance, draws, pred_rgb_256: torch.Tensor,
     shape = (pred_rgb_256.shape[0], 4, g.spec.latent_size,
              g.spec.latent_size)
     eps = draws.normal("sds_posterior", shape)
-    if remat:
-        latents = torch.utils.checkpoint.checkpoint(
-            vae_encode_sample, g, pred_rgb_256, eps, use_reentrant=False)
-    else:
-        latents = vae_encode_sample(g, pred_rgb_256, eps)
+    with trace.span("guidance.vae_encode"):
+        if remat:
+            latents = torch.utils.checkpoint.checkpoint(
+                vae_encode_sample, g, pred_rgb_256, eps, use_reentrant=False)
+        else:
+            latents = vae_encode_sample(g, pred_rgb_256, eps)
     t = draws.randint("sds_t", (1,), min_step, max_step + 1)
     noise = draws.normal("sds_noise", shape)
     ac = g.alphas_cumprod
@@ -306,7 +308,8 @@ def sds_loss(g: Zero123Guidance, draws, pred_rgb_256: torch.Tensor,
     x_in, t_in, context = _cfg_inputs(
         g, latents_noisy, t, c_crossattn, c_concat,
         pose_token(polar, azimuth, radius))
-    uncond, cond = apply_unet(g, x_in, t_in, context).chunk(2, 0)
+    with trace.span("guidance.unet"):
+        uncond, cond = apply_unet(g, x_in, t_in, context).chunk(2, 0)
     noise_pred = uncond + guidance_scale * (cond - uncond)
 
     w = 1.0 - ac.index_select(0, t)

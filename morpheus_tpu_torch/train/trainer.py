@@ -65,7 +65,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from .. import renderer
+from .. import renderer, trace
 from ..data import dataset as data_lib
 from ..model.field import (SHADING_ALBEDO, SHADING_LAMBERTIAN,
                            SHADING_TEXTURELESS, Field, FieldSpec)
@@ -83,6 +83,9 @@ OCC_CHUNK = 32768
 # advances by the calls its capture recorded
 KERNEL_WRAPPERS = (hist.level_histogram, gather.level_gather,
                    segsum.segment_sum_sorted)
+# the steps' compacted sample streams, whose fill the device counters
+# <stream>.samples_valid and <stream>.samples_slots count (trace.fill)
+SAMPLE_STREAMS = ("real", "sds")
 
 
 class RecordedDraws:
@@ -136,10 +139,12 @@ class _StepGraph:
     all-reduces: the capture runs nothing, so its calls are taken back off
     the counters and added again at each replay (recorded, all_reduces).
     capture_s and pool_mb (the card memory the graph's private pool holds)
-    are measured at capture. The graph holds for the step field's spec,
-    the occupancy state and the reducer it was captured against, whose
-    tensors (and the staged batch's) are written in place, never rebound,
-    while it lives (fits)."""
+    are measured at capture, and the body's spans map its device nodes as
+    it is captured (trace.capture_phases: phases, device_nodes, None where
+    the map was lost). The graph holds for the step field's spec, the
+    occupancy state and the reducer it was captured against, whose tensors
+    (and the staged batch's) are written in place, never rebound, while it
+    lives (fits)."""
 
     def __init__(self, trainer: "Trainer"):
         dev, red = trainer.device, trainer.dp
@@ -150,13 +155,15 @@ class _StepGraph:
             self.graph.register_generator_state(trainer.draws.generator)
         before = [f.launches for f in KERNEL_WRAPPERS]
         reduces = (red.all_reduces, red.all_reduce_bytes)
+        nodes = trace.NodeMap()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph), trace.capture_phases(nodes):
             self.loss = trainer._real_body()
         torch.cuda.synchronize(dev)
+        self.phases, self.device_nodes = nodes.phases, nodes.device_nodes
         self.capture_s = time.perf_counter() - t0
         self.pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
         self.recorded = [f.launches - b for f, b in zip(KERNEL_WRAPPERS,
@@ -265,8 +272,10 @@ class Trainer:
         self.graphed = (self.chain and self.device.type == "cuda"
                         and self.dp.backend in (None, "nccl"))
         # one line per capture: {"active_levels", "warmup_s", "capture_s",
-        # "pool_mb", "launches", "all_reduces", "all_reduce_bytes"}
+        # "pool_mb", "launches", "all_reduces", "all_reduce_bytes",
+        # "phases", "device_nodes"}
         self.captures: list = []
+        trace.allocate(SAMPLE_STREAMS, self.device)
         self.global_step = 0
         # optimizer steps of the epoch loop, real and virtual, counted on
         # the host: the warm-up gate and the guidance-panel cadence read it
@@ -357,16 +366,24 @@ class Trainer:
     def _refresh_occ(self, step: int, t_scalar, draws) -> None:
         """The occupancy refresh of `step` (_maybe_update_occ), written into
         self.occ's tensors in place: a graph of the step reads them where
-        it saw them at capture."""
-        new = self._maybe_update_occ(self.occ, step, t_scalar, draws)
-        if new is not self.occ:
+        it saw them at capture. A step that is due runs it in the span
+        occ.refresh."""
+        if not self._occ_due(step):
+            return
+        with trace.span("occ.refresh"):
+            new = self._maybe_update_occ(self.occ, step, t_scalar, draws)
             self.occ.occs.copy_(new.occs)
             self.occ.binaries.copy_(new.binaries)
 
+    def _occ_due(self, step: int) -> bool:
+        return step % self.config["tpu"]["occ_update_every"] == 0
+
     @torch.no_grad()
     def _maybe_update_occ(self, occ, step: int, t_scalar, draws):
+        """`occ` refreshed at `step` if it is due (the warm-up's update
+        before tpu.occ_warmup_steps, the sampled one after), else `occ`."""
         tpu = self.config["tpu"]
-        if step % tpu["occ_update_every"] != 0:
+        if not self._occ_due(step):
             return occ
         dens = self._occ_density_fn(t_scalar)
         step_size = self.config["render"]["step_size"]
@@ -480,6 +497,7 @@ class Trainer:
             ambient_ratio=1.0, shading_id=SHADING_LAMBERTIAN,
             rays_depth=batch["depth"], rays_mask=batch["mask"],
             optimize_pose=True, max_level=max_level, train=True, red=red)
+        trace.fill("real", out["mask"])
 
         gt_mask = (batch["mask"] > 0.5).float()
         gt_rgb = (batch["image"] * gt_mask[:, None]
@@ -668,15 +686,18 @@ class Trainer:
                 max_level=max_level, train=True)
 
         remat = cfg["tpu"].get("remat_virtual", True)
-        if remat:
-            # recompute the render in the backward instead of keeping its
-            # activations (exact: the recomputation replays the draws)
-            rec = RecordedDraws(draws)
-            out = torch.utils.checkpoint.checkpoint(
-                lambda b, am: render(rec.start(), b, am), bg_color,
-                ambient, use_reentrant=False)
-        else:
-            out = render(draws, bg_color, ambient)
+        with trace.span("sds.render"):
+            if remat:
+                # recompute the render in the backward instead of keeping
+                # its activations (exact: the recomputation replays the
+                # draws; the span is the first pass's alone)
+                rec = RecordedDraws(draws)
+                out = torch.utils.checkpoint.checkpoint(
+                    lambda b, am: render(rec.start(), b, am), bg_color,
+                    ambient, use_reentrant=False)
+            else:
+                out = render(draws, bg_color, ambient)
+        trace.fill("sds", out["mask"])
 
         pred = torch.clamp(out["image"].reshape(1, H, W, 3), 0.0, 1.0)
         gsz = g.spec.image_size
@@ -774,16 +795,20 @@ class Trainer:
         package; a non-finite sum skips the update and the carried
         gradients are dropped all the same) and the optimizer update at
         `lr`. The curriculum's values are host floats or device scalars."""
-        if batch is None:
-            batch, bg_color = self._real_batch(draws)
-        loss, _ = self.real_loss_from_batch(self.occ, draws, None, max_level,
-                                            batch, bg_color, weights)
-        grads, loss = self.dp.reduce_grads(self._grads(loss), loss,
-                                           mean=False)
-        if fold:
-            torch._foreach_add_(grads, self.pending)
-            torch._foreach_zero_(self.pending)
-        self.optim.update(grads, lr)
+        with trace.span("real.render"):
+            if batch is None:
+                batch, bg_color = self._real_batch(draws)
+            loss, _ = self.real_loss_from_batch(self.occ, draws, None,
+                                                max_level, batch, bg_color,
+                                                weights)
+        with trace.span("real.backward"):
+            grads, loss = self.dp.reduce_grads(self._grads(loss), loss,
+                                               mean=False)
+        with trace.span("real.update"):
+            if fold:
+                torch._foreach_add_(grads, self.pending)
+                torch._foreach_zero_(self.pending)
+            self.optim.update(grads, lr)
         return loss.detach()
 
     def _real_body(self) -> torch.Tensor:
@@ -854,7 +879,8 @@ class Trainer:
             "launches": dict(zip((f.__name__ for f in KERNEL_WRAPPERS),
                                  graph.recorded)),
             "all_reduces": graph.all_reduces,
-            "all_reduce_bytes": graph.all_reduce_bytes})
+            "all_reduce_bytes": graph.all_reduce_bytes,
+            "phases": graph.phases, "device_nodes": graph.device_nodes})
         return loss, graph
 
     def _grads(self, loss):
@@ -880,23 +906,27 @@ class Trainer:
         self._refresh_occ(self.global_step, t_occ, draws)
         loss, out = self._virtual_loss(self.occ, self.dp.view_draws(draws),
                                        epoch, max_level, sampler)
-        grads, loss = self.dp.reduce_grads(self._grads(loss), loss,
-                                           mean=True)
-        torch._foreach_div_(grads, float(self.config["train"]["virtual_freq"]))
-        found = torch.zeros((), device=self.device)
-        torch._amp_foreach_non_finite_check_and_unscale_(
-            grads, found, torch.ones_like(found))
-        ok = found == 0.0
-        # the GradScaler-parity skip: a non-finite SDS gradient neither
-        # steps the optimizer nor enters the carry
-        grads = [torch.where(ok, g, 0.0) for g in grads]
-        if self.curr.freeze_deform(epoch):
-            self.optim.update(grads, lr, frozen=optim.FREEZE_GROUPS, ok=ok)
-            torch._foreach_zero_(self.pending)
-            self._pending_live = False
-        else:
-            torch._foreach_add_(self.pending, grads)
-            self._pending_live = True
+        with trace.span("sds.grads"):
+            grads, loss = self.dp.reduce_grads(self._grads(loss), loss,
+                                               mean=True)
+        with trace.span("sds.update"):
+            torch._foreach_div_(grads,
+                                float(self.config["train"]["virtual_freq"]))
+            found = torch.zeros((), device=self.device)
+            torch._amp_foreach_non_finite_check_and_unscale_(
+                grads, found, torch.ones_like(found))
+            ok = found == 0.0
+            # the GradScaler-parity skip: a non-finite SDS gradient neither
+            # steps the optimizer nor enters the carry
+            grads = [torch.where(ok, g, 0.0) for g in grads]
+            if self.curr.freeze_deform(epoch):
+                self.optim.update(grads, lr, frozen=optim.FREEZE_GROUPS,
+                                  ok=ok)
+                torch._foreach_zero_(self.pending)
+                self._pending_live = False
+            else:
+                torch._foreach_add_(self.pending, grads)
+                self._pending_live = True
         self.global_step += 1
         return loss.detach(), out.get("sds_diag", {})
 
