@@ -33,7 +33,9 @@ Phases, in order; any failure exits non-zero:
      under its vjp_mode (`hist`, `segsum`, `gather` lines; the sort that
      precedes the segment sum has its own `sort` line, with the route's
      sort and segment sum together as route_ms; each segment sum is also
-     checked bit for bit against a second call). Each line times the
+     checked bit for bit against a second call); the row gather of the
+     encode's forward under hist_rows at the benchmark cells' shapes
+     (`rows` lines, ROWS_CASES, bit for bit). Each line times the
      kernel, the plain version and one PyTorch library call computing the
      same function: `ms`, `plain_ms` and `library_ms` are device time per
      call (device_ms: k calls back to back, the host kept out), `call_ms`
@@ -107,7 +109,8 @@ Phases, in order; any failure exits non-zero:
      (morpheus_tpu_torch/scripts/run_full_budget.sh, its real card probe)
      at configs/synthetic_bench.yaml width, cut to 1 epoch of 1 iteration,
      with the CLIP eval on a random ViT-B/32 (one finite `==> CLIP=`
-     line; level_histogram launches and no others), then rendered by
+     line; row_gather and level_histogram launches and no others), then
+     rendered by
      `python -m morpheus_tpu_torch.visualizer --traj 360` under
      tpu.vjp_mode mxu_rows (the background TSDF-fused on the card, 4
      colored 256^3 meshes, 4 PNGs and the mp4); the first level_gather
@@ -287,16 +290,17 @@ def timings(kernel, plain, library, k: int = 50) -> dict:
 
 
 # the kernels of each vjp_mode's step, and the wrappers that count launches
-PATH_KERNELS = {"hist_rows": ("level_histogram",),
+PATH_KERNELS = {"hist_rows": ("row_gather", "level_histogram"),
                 "mxu_rows": ("level_gather", "level_histogram"),
-                "sort_pallas_rows": ("segment_sum_sorted",)}
+                "sort_pallas_rows": ("row_gather", "segment_sum_sorted")}
 
 
 def wrappers() -> dict:
-    from morpheus_tpu_torch.ops import gather, hist, segsum
+    from morpheus_tpu_torch.ops import gather, hist, rows, segsum
     return {"level_histogram": hist.level_histogram,
             "level_gather": gather.level_gather,
-            "segment_sum_sorted": segsum.segment_sum_sorted}
+            "segment_sum_sorted": segsum.segment_sum_sorted,
+            "row_gather": rows.row_gather}
 
 
 def reset_counts():
@@ -656,8 +660,84 @@ def check_gather(device):
             for name, local, emb, S in cases]
 
 
+# the row_gather calls of the cells' steps at 16 levels (benchmark/, the
+# snoopy_sds cells), on synthetic streams of the bench grid: (case, first
+# level, levels, Np, C, dtype, k). real_tail: the real step's largest call
+# (the hashed tail, 11 x 8 corners x 40,960 samples, 16-byte f32 rows);
+# real_packed: its packed dense prefix (5 levels of 128-byte rows, C = 32);
+# sds_tail: the 180^2 SDS step's tail (11 x 8 x 648,000); then the bf16
+# policy's 8- and 64-byte rows and the sdf-only tail's 8-byte f32 rows
+ROWS_CASES = (("real_tail", 5, 11, 8 * 40960, 4, "float32", 50),
+              ("real_packed", 0, 5, 40960, 32, "float32", 50),
+              ("sds_tail", 5, 11, 8 * 648000, 4, "float32", 10),
+              ("real_tail_bf16", 5, 11, 8 * 40960, 4, "bfloat16", 50),
+              ("real_packed_bf16", 0, 5, 40960, 32, "bfloat16", 50),
+              ("real_sdf_tail", 5, 11, 8 * 8192, 2, "float32", 50))
+
+
+def rows_cases(device):
+    """ROWS_CASES as (case, local, emb, starts, k): uniform random rows of
+    each level; a packed case reads a table of the packed levels' rows."""
+    import torch
+    offs, sizes, _ = bench_grid()
+    g = torch.Generator(device=device)
+    g.manual_seed(3)
+    out = []
+    for case, lo, n, Np, C, dtype, k in ROWS_CASES:
+        T = offs[16] if lo else offs[n]
+        emb = torch.randn((T, C), generator=g, device=device).to(
+            getattr(torch, dtype))
+        local = level_stream(device, g, sizes[lo:lo + n], Np)
+        out.append((case, local, emb, list(offs[lo:lo + n]), k))
+    return out
+
+
+def rows_line(case, local, emb, starts, k: int = 50) -> dict:
+    """One row_gather call against row_gather_reference, bit for bit (a
+    copy), then timed beside the plain version and index_select of the
+    precomputed flat rows (what the route ran before); launches: the
+    kernel's calls over the line. The bound reads the indices, the table
+    rows the call reads (each once) and writes the output."""
+    import torch
+    from morpheus_tpu_torch.ops import rows
+    n0 = rows.row_gather.launches
+    got = rows.row_gather(local, emb, starts)
+    if not torch.equal(got, rows.row_gather_reference(local, emb, starts)):
+        raise AssertionError(f"row_gather {case}: differs from index_select")
+    del got
+    (L, Np), (T, C) = local.shape, emb.shape
+    N, R = L * Np, C * emb.element_size()
+    flat = global_rows(local, starts)
+    read = int(torch.unique(flat).numel())     # table rows read, once each
+    row = {"case": case, "L": L, "Np": Np, "C": C, "rows": T,
+           "row_bytes": R, "table": str(emb.dtype).split(".")[-1],
+           "max_abs_err": 0.0}
+    row.update(timings(
+        lambda: rows.row_gather(local, emb, starts),
+        lambda: rows.row_gather_reference(local, emb, starts),
+        lambda: emb.index_select(0, flat), k))
+    row.update(bound(N * 4 + read * R + N * R, 0))
+    row["bound_bytes"] = N * 4 + read * R + N * R
+    row["of_bound"] = row["bound_ms"] / row["ms"]
+    row["launches"] = rows.row_gather.launches - n0
+    log("rows", json.dumps(row))
+    return row
+
+
+def check_rows(device):
+    """Phase 3: the row_gather cases."""
+    import torch
+    out = []
+    for case, local, emb, starts, k in rows_cases(device):
+        out.append(rows_line(case, local, emb, starts, k))
+        del local, emb
+        torch.cuda.empty_cache()
+    return out
+
+
 # the names ops/hashgrid.py calls its kernels by
-CAPTURED = ("level_histogram", "level_gather", "segment_sum_sorted")
+CAPTURED = ("level_histogram", "level_gather", "segment_sum_sorted",
+            "row_gather")
 
 
 def capture_streams(trainer) -> list:
@@ -705,7 +785,8 @@ def step_lines(mode, calls, prefix: str = "step", k: int = 50) -> dict:
                                                              k=k),
             "level_gather": lambda name, a, kw: gather_line(name, *a, k=k),
             "segment_sum_sorted": lambda name, a, kw: segsum_line(name, *a,
-                                                                  kw, k=k)}
+                                                                  kw, k=k),
+            "row_gather": lambda name, a, kw: rows_line(name, *a, k=k)}
     for i, c in enumerate(calls):
         row = line[c["kernel"]](f"{prefix}_{mode}_{i}", c["args"], c["kw"])
         row["phase"] = c["phase"]
@@ -1138,7 +1219,8 @@ def sds_point(trainer, epoch: int, scale_key: str, freeze: bool,
     peak = torch.cuda.max_memory_allocated()
     if not all(v == v and abs(v) != float("inf") for v in losses):
         raise AssertionError(f"SDS epoch {epoch}: non-finite loss {losses}")
-    if min(per_step["level_histogram"]) < 1 or launches["level_gather"] \
+    if min(per_step["level_histogram"]) < 1 \
+            or min(per_step["row_gather"]) < 1 or launches["level_gather"] \
             or launches["segment_sum_sorted"]:
         raise AssertionError(f"SDS epoch {epoch}: launches {per_step}")
     names = trainer.optim.names
@@ -1376,7 +1458,8 @@ def sds_cli_phase(workdir: str) -> dict:
     if [s["epoch"] for s in stats] != [1, 2] or not all(np.isfinite(losses)):
         raise AssertionError(f"SDS CLI epochs {stats}")
     launches = [_json_lines(r, "kernel-launches")[0] for r in runs]
-    if any(n["level_histogram"] < 11 for n in launches):
+    if any(n["level_histogram"] < 11 or n["row_gather"] < 11
+           for n in launches):
         raise AssertionError(f"SDS CLI kernel launches {launches}")
     panels = glob.glob(os.path.join(ws, "guidance", "000000_zero123_*.png"))
     img = cv2.imread(panels[0]) if panels else None
@@ -1596,8 +1679,8 @@ def cli_phase(workdir: str, world: int = 1) -> dict:
         raise AssertionError("the native marcher did not run")
     launches = [_json_lines(r, "kernel-launches")[0] for r in runs]
     for n in launches:     # the default vjp_mode: hist_rows
-        if n["level_histogram"] < 10 or n["level_gather"] \
-                or n["segment_sum_sorted"]:
+        if n["level_histogram"] < 10 or n["row_gather"] < 10 \
+                or n["level_gather"] or n["segment_sum_sorted"]:
             raise AssertionError(f"CLI kernel launches {launches}")
 
     radii, (centre, corner) = check_cli_artifacts(
@@ -2035,8 +2118,8 @@ def exact_cli_phase(workdir: str) -> dict:
     if any(e["backend"] != "native" for e in _json_lines(run, "mesh-export")):
         raise AssertionError("the native marcher did not run")
     launches = _json_lines(run, "kernel-launches")[0]
-    if launches["level_histogram"] < 20 * 8 or launches["level_gather"] \
-            or launches["segment_sum_sorted"]:
+    if launches["level_histogram"] < 20 * 8 or launches["row_gather"] < 20 \
+            or launches["level_gather"] or launches["segment_sum_sorted"]:
         raise AssertionError(f"exact CLI kernel launches {launches}")
     radii, centre_corner = check_cli_artifacts(
         ws, cfg["data"]["synthetic_frames"], mesh_epochs=(1, 2),
@@ -2317,7 +2400,8 @@ def pipeline_phase(device, workdir: str) -> dict:
         raise AssertionError(f"CLIP scores of the supervised run: {scores}")
     launches = _json_lines(text, "kernel-launches")
     if len(launches) != 1 or not launches[0]["level_histogram"] \
-            or launches[0]["level_gather"] or launches[0]["segment_sum_sorted"]:
+            or not launches[0]["row_gather"] or launches[0]["level_gather"] \
+            or launches[0]["segment_sum_sorted"]:
         raise AssertionError(f"supervised CLI kernel launches {launches}")
     losses = [s["loss"] for s in _json_lines(text, "epoch-stats")]
     if len(losses) != 1 or not _finite(losses):
@@ -3110,9 +3194,10 @@ def bench_gather_lines(device) -> dict:
     """Kernel lines (as phase 3's) on bench_gather's stream, the bench
     point's (10 levels x 327,680 rows of a 16-level 2^15 grid, C=4, f32):
     the histogram of its hist_rows backward, the gather of its mxu_rows
-    forward (three planes) and its mxu_rows_bf16 forward (one), and the
+    forward (three planes) and its mxu_rows_bf16 forward (one), the
     segment sum of its sort_pallas_rows backward (the stable sort's keys,
-    read through its order). Cases bench_gather_<mode>."""
+    read through its order) and the row gather of its hist_rows forward.
+    Cases bench_gather_<mode>."""
     import torch
     from morpheus_tpu_torch.scripts.bench_gather import make_stream
     st = make_stream(device)
@@ -3128,7 +3213,9 @@ def bench_gather_lines(device) -> dict:
                                          emb, starts, 1)],
             "segment_sum_sorted": [segsum_line(
                 "bench_gather_sort_pallas_rows", keys, ct, T,
-                {"order": order})]}
+                {"order": order})],
+            "row_gather": [rows_line("bench_gather_hist_rows", idx, emb,
+                                     starts)]}
 
 
 def bench_phase(device) -> dict:
@@ -3501,7 +3588,9 @@ def kernels_line(rows, main, cli, sds, sds_cli, modes, mesh_row,
         entry("segment_sum_sorted", "morpheus_tpu/ops/segsum_pallas.py:82",
               "sort_pallas_rows"),
         entry("level_gather", "morpheus_tpu/ops/gather_pallas.py:80",
-              "mxu_rows")]}
+              "mxu_rows"),
+        # no Pallas kernel: the JAX package gathers these rows with a take
+        entry("row_gather", None, "hist_rows")]}
     # the mesh export's call under mxu_rows (phase 9) and the viewer's
     # per-frame query (phase 12)
     for key, row in (("mesh_case", mesh_row), ("viewer_case",
@@ -3597,6 +3686,7 @@ def run(device, card: str, workdir: str) -> int:
     rows = {"level_histogram": check_hist(device),
             "level_gather": check_gather(device)}
     rows["segment_sum_sorted"], sort_row = check_segsum(device)
+    rows["row_gather"] = check_rows(device)
     check_double_backward(device)
     laps("3-4 kernel checks")
     if "--kernels-only" in sys.argv[1:]:

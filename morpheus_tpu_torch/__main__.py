@@ -139,10 +139,11 @@ def build_guidance(config, device, log):
 
 def kernel_launches() -> dict:
     """The launches of each hand-written kernel in this process."""
-    from .ops import gather, hist, segsum
+    from .ops import gather, hist, rows, segsum
     return {"level_histogram": hist.level_histogram.launches,
             "level_gather": gather.level_gather.launches,
-            "segment_sum_sorted": segsum.segment_sum_sorted.launches}
+            "segment_sum_sorted": segsum.segment_sum_sorted.launches,
+            "row_gather": rows.row_gather.launches}
 
 
 def main(argv=None):

@@ -41,6 +41,9 @@ SIGNATURES = {
         "level_gather_s3": [_P, _P, _P, _I, _I64, _I, _I64, _P, _P],
         "level_gather_bf16": [_P, _P, _P, _I, _I64, _I, _I64, _P, _P],
     },
+    "row_gather": {
+        "row_gather": [_P, _P, _P, _I, _I64, _I64, _P, _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

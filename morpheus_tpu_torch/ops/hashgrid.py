@@ -6,16 +6,17 @@ interpolation, and the bfloat16 table of the mixed-precision policy).
 The forward gathers table rows and its backward accumulates the row
 cotangents into the table, by the route that ``vjp_mode`` names (ROUTES):
 
-- ``hist_rows`` (default): row gather; per-level histogram (ops/hist.py);
+- ``hist_rows`` (default): row gather (ops/rows.py); per-level histogram
+  (ops/hist.py);
 - ``mxu_rows``: per-level gather through a bf16 split (ops/gather.py);
   the same histogram;
-- ``sort_pallas_rows`` and ``sort_pallas``: row gather; stable sort by row,
-  then the sorted segment sum (ops/segsum.py); ``sort_pallas`` keeps f32
-  payloads;
+- ``sort_pallas_rows`` and ``sort_pallas``: the same row gather; stable
+  sort by row, then the sorted segment sum (ops/segsum.py); ``sort_pallas``
+  keeps f32 payloads;
 - ``sort``, ``level_scatter``, ``scatter``: index_select under torch's own
   autograd (its backward is index_add_).
 
-Each of the three ops is a CUDA kernel on the card. The gather and the
+Each of these ops is a CUDA kernel on the card. The gather and the
 accumulate are each other's backward (GatherRows / AccumulateRows), so
 normals, which differentiate the encode twice, get exact second-order
 gradients. Each differentiated encode accumulates all of its embedding
@@ -34,6 +35,7 @@ import torch
 
 from .gather import level_gather
 from .hist import level_histogram
+from .rows import row_gather
 from .segsum import segment_sum_sorted
 
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
@@ -184,7 +186,7 @@ class _Rows:
 
 
 def _gather_rows(emb, rows: _Rows, payload_dtype):
-    return emb.index_select(0, rows.rows)
+    return row_gather(rows.local, emb, rows.starts)
 
 
 def _gather_levels(emb, rows: _Rows, payload_dtype):

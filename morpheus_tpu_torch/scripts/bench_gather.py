@@ -9,12 +9,13 @@ active levels x 8 corners x 40,960 points, level-major.
 Modes, each through ops/hashgrid.take_rows:
   rows              index_select under torch's autograd (backward
                     index_add_): the library route, as jnp.take in JAX
-  hist_rows         index_select; backward kernels/level_histogram.cu
+  hist_rows         kernels/row_gather.cu; backward
+                    kernels/level_histogram.cu
   mxu_rows          kernels/level_gather.cu (3 bf16 planes, f32 to 1 ulp);
                     backward level_histogram
   mxu_rows_bf16     the same with a bf16 payload (one plane; the
                     histogram rounds the cotangent to bf16)
-  sort_pallas_rows  index_select; backward torch.sort, then
+  sort_pallas_rows  row_gather; backward torch.sort, then
                     kernels/segment_sum_sorted.cu
 
 For f(e) = take_rows(e, ...), the ms of (CUDA events; the host clock on
@@ -47,10 +48,10 @@ MODES = {"rows": ("scatter", None),
          "mxu_rows_bf16": ("mxu_rows", torch.bfloat16),
          "sort_pallas_rows": ("sort_pallas_rows", None)}
 ROUTE_KERNELS = {"rows": (),
-                 "hist_rows": ("level_histogram",),
+                 "hist_rows": ("row_gather", "level_histogram"),
                  "mxu_rows": ("level_gather", "level_histogram"),
                  "mxu_rows_bf16": ("level_gather", "level_histogram"),
-                 "sort_pallas_rows": ("segment_sum_sorted",)}
+                 "sort_pallas_rows": ("row_gather", "segment_sum_sorted")}
 # max|err| relative to the largest |reference| value, by payload type
 TOL = {None: 1e-5, torch.bfloat16: 2.0 ** -7}
 

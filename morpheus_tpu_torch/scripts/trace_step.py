@@ -20,7 +20,8 @@ import time
 from morpheus_tpu_torch import bench
 
 # the port's hand-written kernels, by the names their wrappers launch
-KERNELS = ("level_histogram", "level_gather", "segment_sum_sorted")
+KERNELS = ("level_histogram", "level_gather", "segment_sum_sorted",
+           "row_gather")
 
 # idle seconds on the card at each end of a traced window: the profiler
 # drops a device record whose time, mapped onto the host's clock, falls

@@ -72,6 +72,7 @@ from ..model.field import (SHADING_ALBEDO, SHADING_LAMBERTIAN,
 from ..ops import density as density_lib
 from ..ops import gather, hist, occupancy, segsum
 from ..ops.hashgrid import HashGridSpec, active_count
+from ..ops.rows import row_gather
 from ..parallel import sharding
 from ..utils import Draws, resolve_device
 from . import losses, optim
@@ -82,7 +83,7 @@ OCC_CHUNK = 32768
 # the hand-written kernels' wrappers, whose launch counters a replayed graph
 # advances by the calls its capture recorded
 KERNEL_WRAPPERS = (hist.level_histogram, gather.level_gather,
-                   segsum.segment_sum_sorted)
+                   segsum.segment_sum_sorted, row_gather)
 # the steps' compacted sample streams, whose fill the device counters
 # <stream>.samples_valid and <stream>.samples_slots count (trace.fill)
 SAMPLE_STREAMS = ("real", "sds")

@@ -14,7 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from morpheus_tpu_torch.data.dataset import load_synthetic  # noqa: E402
-from morpheus_tpu_torch.ops import gather, hashgrid, hist, segsum  # noqa: E402
+from morpheus_tpu_torch.ops import (gather, hashgrid, hist, rows,  # noqa: E402
+                                    segsum)
 from morpheus_tpu_torch.train.trainer import Trainer  # noqa: E402
 
 torch.set_num_threads(1)
@@ -32,11 +33,17 @@ def chip_smoke():
 
 
 # kernel calls of one steady tiny step: three differentiated encodes, each
-# accumulating its embedding cotangents in one launch per stream (hist_rows:
-# the packed dense level and the hashed tail)
-STEP_CALLS = {"hist_rows": {"level_histogram": 6},
+# gathering its rows and accumulating its embedding cotangents in one launch
+# per stream (hist_rows: the packed dense level and the hashed tail)
+STEP_CALLS = {"hist_rows": {"row_gather": 6, "level_histogram": 6},
               "mxu_rows": {"level_gather": 3, "level_histogram": 3},
-              "sort_pallas_rows": {"segment_sum_sorted": 3}}
+              "sort_pallas_rows": {"row_gather": 3,
+                                   "segment_sum_sorted": 3}}
+# the kernels' wrappers, by the names ops/hashgrid.py calls them
+REAL = {"level_histogram": hist.level_histogram,
+        "level_gather": gather.level_gather,
+        "segment_sum_sorted": segsum.segment_sum_sorted,
+        "row_gather": rows.row_gather}
 
 
 @pytest.mark.parametrize("mode", list(STEP_CALLS))
@@ -44,9 +51,7 @@ def test_capture_streams_records_one_step_and_restores(chip_smoke, mode):
     cfg = chip_smoke.tiny_config(mode)
     tr = Trainer(cfg, load_synthetic(cfg), device="cpu")
     tr.epoch = 5
-    real = {"level_histogram": hist.level_histogram,
-            "level_gather": gather.level_gather,
-            "segment_sum_sorted": segsum.segment_sum_sorted}
+    real = REAL
     counts = {k: fn.launches for k, fn in real.items()}
 
     calls = chip_smoke.capture_streams(tr)
@@ -61,13 +66,10 @@ def test_capture_streams_records_one_step_and_restores(chip_smoke, mode):
         got[c["kernel"]] = got.get(c["kernel"], 0) + 1
     assert got == STEP_CALLS[mode]
     refresh = [c for c in calls if c["phase"] == "refresh"]
-    # the sampled refresh's 'nearest' queries gather through level_gather
-    # under mxu_rows only (the other modes use index_select)
-    if mode == "mxu_rows":
-        assert refresh and all(c["kernel"] == "level_gather"
-                               for c in refresh)
-    else:
-        assert not refresh
+    # the sampled refresh's 'nearest' queries gather through the route's
+    # gather: level_gather under mxu_rows, row_gather under the others
+    want = "level_gather" if mode == "mxu_rows" else "row_gather"
+    assert refresh and all(c["kernel"] == want for c in refresh)
     assert calls[:len(step)] == step                 # the steady step first
     for c in calls:
         for a in c["args"]:
@@ -119,7 +121,7 @@ def test_capture_mesh_gather_records_and_restores(chip_smoke, tmp_path):
     assert out.shape == (4 * 8 * 24 ** 3, 2) and bool(torch.isfinite(out).all())
     # the CPU runs the plain twin: no launch is counted
     assert launches == {"level_histogram": 0, "level_gather": 0,
-                        "segment_sum_sorted": 0}
+                        "segment_sum_sorted": 0, "row_gather": 0}
 
 
 def _tiny_sds_trainer(chip_smoke, mode):
@@ -148,9 +150,7 @@ def test_capture_sds_streams_under_each_mode(chip_smoke, mode):
     tr = _tiny_sds_trainer(chip_smoke, "hist_rows")
     chip_smoke.set_vjp_mode(tr, mode)
     assert tr.step_field.spec.grid.vjp_mode == mode
-    real = {"level_histogram": hist.level_histogram,
-            "level_gather": gather.level_gather,
-            "segment_sum_sorted": segsum.segment_sum_sorted}
+    real = REAL
     counts = {k: fn.launches for k, fn in real.items()}
     calls = chip_smoke.capture_sds_streams(tr, 6)
     for name, fn in real.items():
@@ -237,13 +237,15 @@ def test_split_busy_sums_kernels_between_markers(chip_smoke):
 # phase 11's captured steady steps on the CPU at the tiny config: the exact
 # ladder's two sdf-only normal passes (n1 and n2) take the place of the
 # reuse form's one, beside the main closure and the surface-point query:
-# four differentiated encodes, each one histogram per stream under
-# hist_rows; the bf16 policy hands the kernels bf16 payloads and
-# (mxu_rows) a bf16 table
-MODE_CALLS = {"exact_ladder": {"hist_rows": {"level_histogram": 8},
+# four differentiated encodes, each one gather and one histogram per
+# stream under hist_rows; the bf16 policy hands the kernels bf16 payloads
+# and a bf16 table
+MODE_CALLS = {"exact_ladder": {"hist_rows": {"row_gather": 8,
+                                             "level_histogram": 8},
                                "mxu_rows": {"level_gather": 4,
                                             "level_histogram": 4},
-                               "sort_pallas_rows": {"segment_sum_sorted": 4}},
+                               "sort_pallas_rows": {"row_gather": 4,
+                                                    "segment_sum_sorted": 4}},
               "bf16_policy": STEP_CALLS}
 
 
@@ -266,7 +268,7 @@ def test_capture_step_under_each_route_of_a_mode(chip_smoke, name):
             a = c["args"]
             if name != "bf16_policy":
                 continue
-            if c["kernel"] == "level_gather":
+            if c["kernel"] in ("level_gather", "row_gather"):
                 assert a[1].dtype == torch.bfloat16     # the table
             else:
                 assert a[1].dtype == (torch.float32 if mode == "mxu_rows"
@@ -357,7 +359,8 @@ def test_kernels_line_carries_exact_and_bf16_cases(chip_smoke):
     rows = {k: [] for k in chip_smoke.CAPTURED}
     for k in rows:
         mode = {"level_histogram": "hist_rows", "level_gather": "mxu_rows",
-                "segment_sum_sorted": "sort_pallas_rows"}[k]
+                "segment_sum_sorted": "sort_pallas_rows",
+                "row_gather": "hist_rows"}[k]
         for prefix in ("step", "step_sds", "step_exact", "step_bf16",
                        "step_dp"):
             rows[k] += [_line(f"{prefix}_{mode}_{i}", Np=10 * (i + 1))
@@ -509,7 +512,8 @@ def test_kernels_line_carries_dp_launches_and_case(chip_smoke):
                 rows[k] += [_line(f"{prefix}_{mode}_{i}", Np=10 * (i + 1))
                             for i in range(3)]
     own = {"level_histogram": "hist_rows", "level_gather": "mxu_rows",
-           "segment_sum_sorted": "sort_pallas_rows"}
+           "segment_sum_sorted": "sort_pallas_rows",
+           "row_gather": "hist_rows"}
     for e in _kernels_line(chip_smoke, rows)["kernels"]:
         assert e["dp_launches"] == {**{m: [7, 5]
                                        for m in chip_smoke.PATH_KERNELS},
@@ -661,7 +665,8 @@ def test_check_bench_refuses(chip_smoke, bad):
 def _gather_text(launches):
     """bench_gather's lines with `launches` of each mode's route kernels."""
     from morpheus_tpu_torch.scripts import bench_gather
-    kernels = ("level_histogram", "level_gather", "segment_sum_sorted")
+    kernels = ("level_histogram", "level_gather", "segment_sum_sorted",
+               "row_gather")
     return "".join(
         "bench_gather: " + json.dumps({"mode": m, "launches": {
             k: (launches if k in bench_gather.ROUTE_KERNELS[m] else 0)
@@ -773,7 +778,8 @@ def test_bench_gather_lines_on_the_cpu(chip_smoke, monkeypatch):
     rows = chip_smoke.bench_gather_lines(torch.device("cpu"))
     assert [r["case"] for k in chip_smoke.CAPTURED for r in rows[k]] == [
         "bench_gather_hist_rows", "bench_gather_mxu_rows",
-        "bench_gather_mxu_rows_bf16", "bench_gather_sort_pallas_rows"]
+        "bench_gather_mxu_rows_bf16", "bench_gather_sort_pallas_rows",
+        "bench_gather_hist_rows"]
     for k in rows:
         for r in rows[k]:
             assert r["max_abs_err"] < 1e-4 and r["bound_ms"] > 0
