@@ -159,12 +159,15 @@ Phases, in order; any failure exits non-zero:
      lines bench_gather_<mode>; the kernels line's bench_gather_launches
      and bench_gather_case);
   15. (run after phase 11, on its scene; each part's seconds are `lap:`
-     lines) tpu.chain_steps (chain_phase): under each vjp_mode and the bf16
-     policy, an eager and a graphed trainer of configs/synthetic_bench.yaml
-     from the same seed take two blocks of 10 real steps (epochs 100 and
-     101 from step 1000: a sampled refresh in the first, 10 then 12 active
-     levels, so two captures); their parameters, optimizer slots,
-     occupancy grids and generator states are compared, bit for bit under
+     lines) tpu.chain_steps (chain_phase): under each vjp_mode, the bf16
+     policy and the exact semantics of configs/ab_exact.yaml (every
+     sample, the full band ladder, f32 cotangents) under sort_pallas_rows
+     and hist_rows, an eager and a graphed trainer of
+     configs/synthetic_bench.yaml from the same seed take two blocks of
+     10 real steps (epochs 100 and 101 from step 1000: a sampled refresh
+     in the first, 10 then 12 active levels, so two captures); their
+     parameters, optimizer slots, occupancy grids and generator states
+     are compared, bit for bit under
      sort_pallas_rows with deterministic algorithms (losses too), within
      stated tolerances elsewhere, beside a second eager run; each kernel of the mode ran on every graphed
      step, each replay counting its captured calls; a traced replayed
@@ -3250,12 +3253,28 @@ def bench_phase(device) -> dict:
 # block
 CHAIN_EPOCHS = (100, 101)
 CHAIN_STEP0 = 1000
-# (label, vjp_mode, tpu overrides): the three routes, and the bf16 policy
-# under the default route
+
+
+def exact_knobs() -> dict:
+    """The tpu knobs in which configs/ab_exact.yaml differs from
+    ab_shipped.yaml: the un-compacted body, N*K samples and the P*N band
+    ladder, with f32 cotangents."""
+    from morpheus_tpu_torch.config import load_config
+    exact, shipped = (load_config(os.path.join(
+        HERE, "configs", f"ab_{arm}.yaml"))["tpu"]
+        for arm in ("exact", "shipped"))
+    return {k: v for k, v in exact.items() if shipped.get(k) != v}
+
+
+# (label, vjp_mode, tpu overrides, "exact" for exact_knobs()): the three
+# routes, the bf16 policy under the default route, and the exact body
+# under the deterministic route and the default one
 CHAIN_RUNS = (("hist_rows", "hist_rows", {}),
               ("mxu_rows", "mxu_rows", {}),
               ("sort_pallas_rows", "sort_pallas_rows", {}),
-              ("bf16_hist_rows", "hist_rows", {"compute_dtype": "bfloat16"}))
+              ("bf16_hist_rows", "hist_rows", {"compute_dtype": "bfloat16"}),
+              ("exact_sort_pallas_rows", "sort_pallas_rows", "exact"),
+              ("exact_hist_rows", "hist_rows", "exact"))
 # graphed against eager where the kernels sum with float atomics in the
 # order the card runs them (level_histogram; index_add_ in every mode
 # but under deterministic algorithms): the parameters within 2*n*lr after
@@ -3436,6 +3455,7 @@ def chain_phase(device, ds) -> dict:
     t0 = time.perf_counter()
     result = {"runs": {}}
     for label, mode, tpu in CHAIN_RUNS:
+        tpu = exact_knobs() if tpu == "exact" else tpu
         det = mode == "sort_pallas_rows"
         eager = chain_trainer(device, ds, mode, tpu, False)
         e = chain_blocks(eager, det)

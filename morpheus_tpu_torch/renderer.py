@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from . import trace
 from .model.field import SHADING_ALBEDO, Field
 from .ops import occupancy, volrender
 from .parallel.sharding import LOCAL, Reducer
@@ -288,14 +289,18 @@ def render_rays(field: Field, occ_state, draws, rays_o, rays_d, rays_t,
             field.deform_code_at(t0 + dt))
 
     if rcfg.normal_smoothness:
-        if rcfg.band_reuse and rcfg.band_budget and normals is not None:
-            out["normal_reg"] = _band_reuse_normal_smoothness(
-                field, draws, x_flat, t_flat, normals, valid, t_mid, depth,
-                ray_id, rcfg, max_level, stream, n_rays)
-        else:
-            out["normal_reg"] = _surface_band_normal_smoothness(
-                field, draws, rays_o, rays_d, rays_t, depth, rcfg, max_level,
-                rays)
+        # band_mask: the term's fixed candidate slots that lie in the band
+        with trace.span("render.band"):
+            if rcfg.band_reuse and rcfg.band_budget and normals is not None:
+                out["normal_reg"], out["band_mask"] = \
+                    _band_reuse_normal_smoothness(
+                        field, draws, x_flat, t_flat, normals, valid, t_mid,
+                        depth, ray_id, rcfg, max_level, stream, n_rays)
+            else:
+                out["normal_reg"], out["band_mask"] = \
+                    _surface_band_normal_smoothness(
+                        field, draws, rays_o, rays_d, rays_t, depth, rcfg,
+                        max_level, rays)
 
     if rays_depth is not None:
         fs_loss, sdf_loss = losses.sdf_losses_flat(
@@ -331,7 +336,8 @@ def _band_reuse_normal_smoothness(field: Field, draws, x_flat, t_flat,
     render samples within trunc/2 of the rendered depth (inside the
     outside_radius filter, budgeted to band_budget*N sites of the n_rays
     of the global batch; `stream`: the samples' Rows); only the
-    ortho-perturbed second normal is evaluated (an sdf-only encode)."""
+    ortho-perturbed second normal is evaluated (an sdf-only encode).
+    Returns (the term, the mask of the samples in the band)."""
     depth_r = depth.detach()[ray_id]
     in_band = (valid & (torch.abs(t_mid - depth_r) < 0.5 * rcfg.trunc)
                & (torch.linalg.norm(x_flat, dim=-1) < rcfg.outside_radius))
@@ -344,7 +350,7 @@ def _band_reuse_normal_smoothness(field: Field, draws, x_flat, t_flat,
                          max_level=max_level)
     sq = ((n1 - n2) ** 2).sum(-1) / 3.0
     return (torch.where(m_b, sq, 0.0).sum()
-            / (stream.red.total(m_b.sum()) + 1e-8))
+            / (stream.red.total(m_b.sum()) + 1e-8)), in_band
 
 
 @functools.lru_cache(maxsize=8)
@@ -367,15 +373,17 @@ def _surface_band_normal_smoothness(field: Field, draws, rays_o, rays_d,
     masked out (the reference drops them); under band_budget a random
     band_budget*N of the in-band points are evaluated (top-k of a random
     score, exact where the JAX package's approx_max_k is exact on the
-    CPU), N the global batch's rays (`rays`: this rank's Rows of them)."""
+    CPU), N the global batch's rays (`rays`: this rank's Rows of them).
+    Returns (the term, the mask of the ladder's P*N points inside the
+    radius)."""
     P = int(rcfg.trunc * 100 + 1)
     ladder = _ladder(rcfg.trunc, P, depth.device) \
         + 0.01 * draws.uniform("ladder_jitter", (P,))
     pts = ((depth.detach()[None, :] + ladder[:, None])[..., None]
            * rays_d[None] + rays_o[None]).reshape(-1, 3)         # (P*N, 3)
     ts = rays_t[None].expand((P,) + tuple(rays_t.shape)).reshape(-1, 1)
-    in_band = torch.linalg.norm(pts, dim=-1) < rcfg.outside_radius
-    sel, l_rows, in_band = _subset_sel(draws, "ladder_sel", in_band,
+    band = torch.linalg.norm(pts, dim=-1) < rcfg.outside_radius
+    sel, l_rows, in_band = _subset_sel(draws, "ladder_sel", band,
                                        rcfg.band_budget * rays.total,
                                        rays.repeated(P, depth.device))
     pts, ts = (_take(a, sel) for a in (pts, ts))
@@ -386,4 +394,4 @@ def _surface_band_normal_smoothness(field: Field, draws, rays_o, rays_d,
                          max_level=max_level)
     sq = ((n1 - n2) ** 2).sum(-1) / 3.0
     return (torch.where(in_band, sq, 0.0).sum()
-            / (rays.red.total(in_band.sum()) + 1e-8))
+            / (rays.red.total(in_band.sum()) + 1e-8)), band

@@ -169,20 +169,23 @@ class _DriverNodes:
 
 class NodeMap:
     """Where each span of a stream capture lies among the captured graph's
-    device nodes: phases, [[name, first, end], ...] in the order the spans
-    opened (node `first` up to, not including, `end`), and device_nodes,
-    the graph's count at the capture's end; both set as the capture's
-    block ends. count() gives the graph's device nodes so far (by default
-    CUDA's own count of the graph that the current stream captures into).
-    A count that fails loses the map, never the capture: phases and
+    device nodes: phases, [[name, first, end], ...] of the spans opened
+    with no other span open, in the order they opened (node `first` up
+    to, not including, `end`); nested, the same of the spans opened inside
+    another, which lie within its range; and device_nodes, the graph's
+    count at the capture's end; all set as the capture's block ends.
+    count() gives the graph's device nodes so far (by default CUDA's own
+    count of the graph that the current stream captures into). A count
+    that fails loses the map, never the capture: phases, nested and
     device_nodes stay None, and a warning says why (lost)."""
 
     def __init__(self, count=None):
         self.count = count
         self.phases: list | None = None
+        self.nested: list | None = None
         self.device_nodes: int | None = None
         self.lost: str | None = None
-        self._spans: list = []
+        self._spans: list = []          # [name, first, end, depth]
         self._open: list = []
 
     def _count(self) -> int | None:
@@ -198,8 +201,9 @@ class NodeMap:
             return None
 
     def enter(self, name: str) -> None:
+        depth = len(self._open)
         self._open.append(len(self._spans))
-        self._spans.append([name, self._count(), None])
+        self._spans.append([name, self._count(), None, depth])
 
     def exit(self) -> None:
         self._spans[self._open.pop()][2] = self._count()
@@ -207,7 +211,9 @@ class NodeMap:
     def finish(self) -> None:
         n = self._count()
         if self.lost is None:
-            self.phases, self.device_nodes = self._spans, n
+            self.phases = [s[:3] for s in self._spans if not s[3]]
+            self.nested = [s[:3] for s in self._spans if s[3]]
+            self.device_nodes = n
 
 
 @contextlib.contextmanager

@@ -84,9 +84,10 @@ OCC_CHUNK = 32768
 # advances by the calls its capture recorded
 KERNEL_WRAPPERS = (hist.level_histogram, gather.level_gather,
                    segsum.segment_sum_sorted, row_gather)
-# the steps' compacted sample streams, whose fill the device counters
+# the steps' compacted sample streams and the band term's candidate sites
+# (render_rays' band_mask, either form), whose fill the device counters
 # <stream>.samples_valid and <stream>.samples_slots count (trace.fill)
-SAMPLE_STREAMS = ("real", "sds")
+SAMPLE_STREAMS = ("real", "sds", "band")
 
 
 class RecordedDraws:
@@ -141,8 +142,8 @@ class _StepGraph:
     the counters and added again at each replay (recorded, all_reduces).
     capture_s and pool_mb (the card memory the graph's private pool holds)
     are measured at capture, and the body's spans map its device nodes as
-    it is captured (trace.capture_phases: phases, device_nodes, None where
-    the map was lost). The graph holds for the step field's spec, the
+    it is captured (trace.capture_phases: phases, nested, device_nodes,
+    None where the map was lost). The graph holds for the step field's spec, the
     occupancy state and the reducer it was captured against, whose tensors
     (and the staged batch's) are written in place, never rebound, while it
     lives (fits)."""
@@ -164,7 +165,8 @@ class _StepGraph:
         with torch.cuda.graph(self.graph), trace.capture_phases(nodes):
             self.loss = trainer._real_body()
         torch.cuda.synchronize(dev)
-        self.phases, self.device_nodes = nodes.phases, nodes.device_nodes
+        self.phases, self.nested = nodes.phases, nodes.nested
+        self.device_nodes = nodes.device_nodes
         self.capture_s = time.perf_counter() - t0
         self.pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
         self.recorded = [f.launches - b for f, b in zip(KERNEL_WRAPPERS,
@@ -499,6 +501,8 @@ class Trainer:
             rays_depth=batch["depth"], rays_mask=batch["mask"],
             optimize_pose=True, max_level=max_level, train=True, red=red)
         trace.fill("real", out["mask"])
+        if "band_mask" in out:
+            trace.fill("band", out["band_mask"])
 
         gt_mask = (batch["mask"] > 0.5).float()
         gt_rgb = (batch["image"] * gt_mask[:, None]
@@ -699,6 +703,8 @@ class Trainer:
             else:
                 out = render(draws, bg_color, ambient)
         trace.fill("sds", out["mask"])
+        if "band_mask" in out:
+            trace.fill("band", out["band_mask"])
 
         pred = torch.clamp(out["image"].reshape(1, H, W, 3), 0.0, 1.0)
         gsz = g.spec.image_size
@@ -881,7 +887,8 @@ class Trainer:
                                  graph.recorded)),
             "all_reduces": graph.all_reduces,
             "all_reduce_bytes": graph.all_reduce_bytes,
-            "phases": graph.phases, "device_nodes": graph.device_nodes})
+            "phases": graph.phases, "nested": graph.nested,
+            "device_nodes": graph.device_nodes})
         return loss, graph
 
     def _grads(self, loss):

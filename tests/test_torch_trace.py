@@ -146,7 +146,8 @@ def test_node_map_of_fake_capture():
         with trace.span("b"):
             nodes.n = 12
         nodes.n = 13
-    assert m.phases == [["a", 2, 9], ["inner", 5, 9], ["b", 9, 12]]
+    assert m.phases == [["a", 2, 9], ["b", 9, 12]]
+    assert m.nested == [["inner", 5, 9]]
     assert m.device_nodes == 13
     assert trace._capture is None
     assert trace.span("a") is trace.span("b")
@@ -168,7 +169,9 @@ class OpCount(TorchDispatchMode):
 def test_node_map_of_the_real_body():
     """The chained real step's body under a fake capture: three
     contiguous phases, render, backward, update, in that order, each
-    holding work, within the body's count."""
+    holding work, within the body's count; the band term's span
+    (render.band) nested inside the render, holding work, and not among
+    the phases."""
     tr = sds_trainer(False)
     tr.scalars.set(tr.epoch)
     ops = OpCount()
@@ -178,6 +181,8 @@ def test_node_map_of_the_real_body():
     assert names == list(REAL_SPANS)
     (_, a0, a1), (_, b0, b1), (_, c0, c1) = m.phases
     assert a0 < a1 == b0 < b1 == c0 < c1 <= m.device_nodes
+    [(name, n0, n1)] = m.nested
+    assert name == "render.band" and a0 < n0 < n1 < a1
 
 
 def test_a_failing_node_count_loses_the_map_not_the_body():
@@ -197,6 +202,7 @@ def test_a_failing_node_count_loses_the_map_not_the_body():
         with trace.capture_phases(trace.NodeMap(count)) as m:
             loss = tr._real_body()
     assert torch.isfinite(loss)
-    assert m.phases is None and m.device_nodes is None
+    assert m.phases is None and m.nested is None
+    assert m.device_nodes is None
     assert "CUresult 1" in m.lost and len(calls) == 3
     assert trace._capture is None
