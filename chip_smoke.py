@@ -60,7 +60,11 @@ Phases, in order; any failure exits non-zero:
   8. the main path at a tiny size on the card against the same run on the
      CPU (same parameters, same random draws), under each of the three
      modes;
-  8b. the SDS virtual step (sds_phase) at the full width of
+  8b. the Zero123 UNet's CUDA graph (unet_graph_check) at the benchmark
+     cells' shapes, bfloat16, CFG batch 2 on a 32^2 latent: replays bit
+     for bit the eager body's outputs for three inputs in turn, and follow
+     an in-place weight update (`unet graph:` line); then
+     the SDS virtual step (sds_phase) at the full width of
      configs/synthetic_full.yaml: the full-size "<random>" Zero123 under
      guidance.compute_dtype bfloat16, 32 frames at 360^2, bg_radius 1.4,
      16 levels, hist_rows; one epoch from step 0, then 5 timed SDS steps at
@@ -986,6 +990,8 @@ def small_reference(device, mode: str, overrides=None, name=None,
 SDS_POINTS = ((300, "novel_view_scale", True),
               (900, "novel_view_scale_final", False))
 SDS_TIMED = 5
+# (x, t, context) triples that replay the UNet's graph in unet_graph_check
+UNET_GRAPH_INPUTS = 3
 
 
 # what each marked window of an SDS step belongs to (the window from a mark
@@ -1347,6 +1353,80 @@ def sds_phase(device, ds) -> tuple:
     del trainer
     torch.cuda.empty_cache()
     return {"setup": setup, "points": points}, rows
+
+
+def unet_graph_check(device) -> dict:
+    """The Zero123 UNet's CUDA graph (guidance/unet_graph.py) at the
+    benchmark cells' shapes: the real-width Zero123 spec under
+    compute_dtype bfloat16 with random weights, every weight that
+    init_random zeroes drawn too (a zero epsilon would match whatever the
+    graph did), x (2, 8, 32, 32), t (2,), context (2, 1, 768). apply_unet's
+    first call runs eagerly and captures; then UNET_GRAPH_INPUTS (x, t,
+    context) triples in turn replay, each bit for bit the eager body's
+    output; after an in-place copy_ into one UNet weight the replay
+    follows the new weight, without a new capture. Logs the eager body's
+    and the replay's call_ms, the capture's seconds and the graph's pool
+    MB (`unet graph:` line)."""
+    import torch
+    from morpheus_tpu_torch import trace
+    from morpheus_tpu_torch.guidance import zero123 as z123
+    spec = z123.Zero123Spec(compute_dtype="bfloat16")
+    g = z123.Zero123Guidance.init_random(spec, device, seed=5)
+    gen = torch.Generator(device=device).manual_seed(6)
+    h = spec.latent_size
+    with torch.no_grad():
+        for p in g.unet.parameters():
+            if not bool(p.any()):
+                p.normal_(0.0, 0.02, generator=gen)
+        triples = [(torch.randn(2, 8, h, h, generator=gen, device=device),
+                    torch.randint(0, 1000, (2,), generator=gen,
+                                  device=device),
+                    torch.randn(2, 1, spec.context_dim, generator=gen,
+                                device=device))
+                   for _ in range(UNET_GRAPH_INPUTS)]
+        eager = [z123._unet_body(g, *a) for a in triples]
+    if not all(bool(torch.isfinite(e).all()) and bool(e.any())
+               for e in eager) or torch.equal(eager[0], eager[1]):
+        raise AssertionError("unet graph: the eager outputs are not finite, "
+                             "non-zero and distinct")
+    before = trace.read()
+    first = z123.apply_unet(g, *triples[0])
+    graphs = list(g.unet_graphs.graphs.values())
+    if len(graphs) != 1 or not torch.equal(first, eager[0]):
+        raise AssertionError("unet graph: the first call did not capture "
+                             "one graph, or its eager output differs")
+    for i, a in enumerate(triples):
+        if not torch.equal(z123.apply_unet(g, *a), eager[i]):
+            raise AssertionError(f"unet graph: replay {i} differs from the "
+                                 "eager body")
+    w = g.unet.out[2].weight
+    with torch.no_grad():
+        w.copy_(w + torch.randn(w.shape, generator=gen, device=device,
+                                dtype=w.dtype) * 0.02)
+        moved = z123._unet_body(g, *triples[0])
+    followed = z123.apply_unet(g, *triples[0])
+    if torch.equal(moved, eager[0]) or not torch.equal(followed, moved) \
+            or list(g.unet_graphs.graphs.values()) != graphs:
+        raise AssertionError("unet graph: the replay did not follow an "
+                             "in-place weight update")
+    after = trace.read()
+    counted = {k: after[k] - before.get(k, 0.0)
+               for k in ("unet.calls", "unet.replays")}
+    if counted != {"unet.calls": UNET_GRAPH_INPUTS + 2.0,
+                   "unet.replays": UNET_GRAPH_INPUTS + 1.0}:
+        raise AssertionError(f"unet graph: counters {counted}")
+    with torch.no_grad():
+        eager_ms = call_ms(lambda: z123._unet_body(g, *triples[0]))
+    replay_ms = call_ms(lambda: z123.apply_unet(g, *triples[0]))
+    out = {"shapes": [list(a.shape) for a in triples[0]],
+           "inputs": UNET_GRAPH_INPUTS, "bit_for_bit": True,
+           "follows_in_place_copy": True, "eager_call_ms": eager_ms,
+           "replay_call_ms": replay_ms, "capture_s": graphs[0].capture_s,
+           "pool_mb": graphs[0].pool_mb, "card": card_line()}
+    log("unet graph:", json.dumps(out))
+    del g, graphs
+    torch.cuda.empty_cache()
+    return out
 
 
 def sds_small_reference(device):
@@ -3653,6 +3733,7 @@ def run(device, card: str, workdir: str) -> int:
     if "--sds-only" in sys.argv[1:]:
         from morpheus_tpu_torch.config import load_config
         from morpheus_tpu_torch.data.dataset import load_synthetic
+        unet_graph_check(device)
         ds = load_synthetic(load_config(os.path.join(
             HERE, "configs", "synthetic_full.yaml")))
         sds, sds_rows = sds_phase(device, ds)
@@ -3736,6 +3817,7 @@ def run(device, card: str, workdir: str) -> int:
     laps("5-7 main path")
     # phase 8b: the SDS virtual step on the same scene
     # (configs/synthetic_full.yaml has synthetic_bench's 32 frames at 360^2)
+    unet_graph_check(device)
     sds, sds_rows = sds_phase(device, ds)
     for k, r in sds_rows.items():
         rows[k] += r

@@ -23,6 +23,7 @@ from .. import trace
 from ..utils import resolve_device
 from . import clip_vit, schedule, unet, vae
 from .layers import ResBlock, SpatialTransformer
+from .unet_graph import UNetGraphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +102,8 @@ class _Holder(nn.Module):
 
 class Zero123Guidance(nn.Module):
     """The frozen LatentDiffusion pieces, under ldm's state-dict names, and
-    alphas_cumprod (float32, recomputed from the spec, not saved)."""
+    alphas_cumprod (float32, recomputed from the spec, not saved);
+    unet_graphs, the CUDA graphs of the UNet's forward (apply_unet)."""
 
     def __init__(self, spec: Zero123Spec = Zero123Spec()):
         super().__init__()
@@ -123,6 +125,7 @@ class Zero123Guidance(nn.Module):
             spec.diffusion.alphas_cumprod, dtype=torch.float32),
             persistent=False)
         self.requires_grad_(False)
+        self.unet_graphs = UNetGraphs(self.unet)
 
     @property
     def unet(self) -> unet.UNetModel:
@@ -219,7 +222,18 @@ def vae_decode(g: Zero123Guidance, latents: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def apply_unet(g: Zero123Guidance, x, t, context) -> torch.Tensor:
     """The epsilon prediction, without gradient, in float32; under
-    compute_dtype bfloat16 the inputs go in as bfloat16."""
+    compute_dtype bfloat16 the inputs go in as bfloat16. On a card, a
+    replay of the CUDA graph of this key (g.unet_graphs; unet_graph.py),
+    captured at the key's first call, which runs eagerly; on the CPU,
+    eagerly. Counts unet.calls, and the graphs unet.replays (trace.py)."""
+    trace.count("unet.calls")
+    if x.is_cuda:
+        return g.unet_graphs(lambda *a: _unet_body(g, *a), x, t, context,
+                             g.spec.compute_dtype)
+    return _unet_body(g, x, t, context)
+
+
+def _unet_body(g: Zero123Guidance, x, t, context) -> torch.Tensor:
     dt = torch.bfloat16 if g.spec.compute_dtype == "bfloat16" \
         else torch.float32
     return g.unet(x.to(dt), t, context.to(dt)).float()

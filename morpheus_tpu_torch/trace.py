@@ -3,6 +3,7 @@
     with trace.span("sds.render"):           # a phase of a step
         ...
     trace.fill("real", mask)    # a fixed-size stream's fill counters
+    trace.count("unet.calls")   # a host counter
     trace.read()        # {name: float}, one synchronize a device
     trace.reset()       # every counter to 0, in place
 
@@ -20,10 +21,13 @@ profiler records as device work) the graph under capture holds at its
 entry and at its exit; the NodeMap given to capture_phases then says
 which of a replay's device records, in the graph's order, each span made.
 
-Counters are float64 scalars on the device. allocate() puts them in place
-before any capture, so that a captured fill() adds into tensors that live
-as long as the graph, and a replay adds as the eager step does. fill()
-never reads to the host.
+Fill counters are float64 scalars on the device. allocate() puts them in
+place before any capture, so that a captured fill() adds into tensors that
+live as long as the graph, and a replay adds as the eager step does. fill()
+never reads to the host. Host counters (count()) are floats that add on
+the host, as a call is made: inside a captured body one counts the capture
+alone, never a replay, so they count calls made outside graphs (how often
+a call replays a graph of its own).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch
 _NULL = contextlib.nullcontext()
 _capture: "NodeMap | None" = None
 _device: dict = {}          # (name, device) -> float64 scalar tensor
+_host: dict = {}            # name -> float
 # a stream's counters: its entries that hold real samples (its `valid` mask
 # summed) and its fixed size
 FILL = ("samples_valid", "samples_slots")
@@ -81,10 +86,15 @@ def fill(prefix: str, mask: torch.Tensor) -> None:
     slots.add_(mask.numel())
 
 
+def count(name: str, n: float = 1.0) -> None:
+    """Add n to host counter `name`."""
+    _host[name] = _host.get(name, 0.0) + n
+
+
 def read() -> dict:
-    """{name: float}: the counters, summed over devices; one synchronize
-    for each device that holds counters."""
-    out = {}
+    """{name: float}: the host counters and the fill counters, summed over
+    devices; one synchronize for each device that holds counters."""
+    out = dict(_host)
     by_device = {}
     for (name, dev), t in _device.items():
         by_device.setdefault(dev, []).append((name, t))
@@ -98,6 +108,8 @@ def read() -> dict:
 def reset() -> None:
     """Every counter to 0, in place (a graph adds into them where it found
     them)."""
+    for name in _host:
+        _host[name] = 0.0
     for t in _device.values():
         t.zero_()
 
