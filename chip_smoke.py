@@ -296,27 +296,23 @@ def timings(kernel, plain, library, k: int = 50) -> dict:
     return out
 
 
-# the kernels of each vjp_mode's step, and the wrappers that count launches
+# the kernels of each vjp_mode's step
 PATH_KERNELS = {"hist_rows": ("row_gather", "level_histogram"),
                 "mxu_rows": ("level_gather", "level_histogram"),
                 "sort_pallas_rows": ("row_gather", "segment_sum_sorted")}
 
 
-def wrappers() -> dict:
-    from morpheus_tpu_torch.ops import gather, hist, rows, segsum
-    return {"level_histogram": hist.level_histogram,
-            "level_gather": gather.level_gather,
-            "segment_sum_sorted": segsum.segment_sum_sorted,
-            "row_gather": rows.row_gather}
-
-
-def reset_counts():
-    for fn in wrappers().values():
-        fn.launches = 0
-
-
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in wrappers().items()}
+    """Each kernel's launches so far in this process (the port's host
+    counters, trace.counts(); a replayed graph's as its capture counted
+    them), read without a synchronize."""
+    from morpheus_tpu_torch import kernels, trace
+    return kernels.launches(trace.counts())
+
+
+def counts_since(before: dict) -> dict:
+    """Each kernel's launches since `before`, a read_counts()."""
+    return {k: v - before[k] for k, v in read_counts().items()}
 
 
 def bench_grid():
@@ -455,11 +451,11 @@ def check_hist(device):
             rows_out.append(hist_line(name, idx, vals32.to(dt), starts,
                                       n_rows, kw))
     # an empty stream launches nothing and is not counted
-    n0 = hist.level_histogram.launches
+    n0 = read_counts()
     empty = hist.level_histogram(torch.zeros((2, 0), dtype=torch.int32,
                                              device=device),
                                  torch.zeros((0, 4), device=device), [0, 8], 16)
-    if hist.level_histogram.launches != n0 or bool(empty.any()):
+    if read_counts() != n0 or bool(empty.any()):
         raise AssertionError("level_histogram counted an empty stream")
     return rows_out
 
@@ -594,11 +590,11 @@ def check_segsum(device):
                 "sort_and_permute_ms": device_ms(sort_and_permute)[0],
                 "route_ms": device_ms(route)[0]}
     log("sort", json.dumps(sort_row))
-    n0 = segsum.segment_sum_sorted.launches
+    n0 = read_counts()
     empty = segsum.segment_sum_sorted(
         torch.zeros((0,), dtype=torch.int32, device=device),
         torch.zeros((0, 4), device=device), 16)
-    if segsum.segment_sum_sorted.launches != n0 or bool(empty.any()):
+    if read_counts() != n0 or bool(empty.any()):
         raise AssertionError("segment_sum_sorted counted an empty stream")
     return rows_out, sort_row
 
@@ -707,7 +703,7 @@ def rows_line(case, local, emb, starts, k: int = 50) -> dict:
     rows the call reads (each once) and writes the output."""
     import torch
     from morpheus_tpu_torch.ops import rows
-    n0 = rows.row_gather.launches
+    n0 = read_counts()
     got = rows.row_gather(local, emb, starts)
     if not torch.equal(got, rows.row_gather_reference(local, emb, starts)):
         raise AssertionError(f"row_gather {case}: differs from index_select")
@@ -726,7 +722,7 @@ def rows_line(case, local, emb, starts, k: int = 50) -> dict:
     row.update(bound(N * 4 + read * R + N * R, 0))
     row["bound_bytes"] = N * 4 + read * R + N * R
     row["of_bound"] = row["bound_ms"] / row["ms"]
-    row["launches"] = rows.row_gather.launches - n0
+    row["launches"] = counts_since(n0)["row_gather"]
     log("rows", json.dumps(row))
     return row
 
@@ -1212,8 +1208,8 @@ def sds_point(trainer, epoch: int, scale_key: str, freeze: bool,
     before = [p.detach().clone() for p in trainer.params]
     adam_steps = float(trainer.optim.step)
     torch.cuda.reset_peak_memory_stats()
-    step_ms, losses, per_step = [], [], {k: [] for k in wrappers()}
-    reset_counts()
+    step_ms, losses, per_step = [], [], {k: [] for k in read_counts()}
+    c0 = read_counts()
     for _ in range(n_timed):
         n0 = read_counts()
         torch.cuda.synchronize()
@@ -1224,7 +1220,7 @@ def sds_point(trainer, epoch: int, scale_key: str, freeze: bool,
         for k, v in read_counts().items():
             per_step[k].append(v - n0[k])
         losses.append(float(loss))
-    launches = read_counts()
+    launches = counts_since(c0)
     peak = torch.cuda.max_memory_allocated()
     if not all(v == v and abs(v) != float("inf") for v in losses):
         raise AssertionError(f"SDS epoch {epoch}: non-finite loss {losses}")
@@ -1421,8 +1417,9 @@ def unet_graph_check(device) -> dict:
     out = {"shapes": [list(a.shape) for a in triples[0]],
            "inputs": UNET_GRAPH_INPUTS, "bit_for_bit": True,
            "follows_in_place_copy": True, "eager_call_ms": eager_ms,
-           "replay_call_ms": replay_ms, "capture_s": graphs[0].capture_s,
-           "pool_mb": graphs[0].pool_mb, "card": card_line()}
+           "replay_call_ms": replay_ms,
+           "capture_s": graphs[0].graph.capture_s,
+           "pool_mb": graphs[0].graph.pool_mb, "card": card_line()}
     log("unet graph:", json.dumps(out))
     del g, graphs
     torch.cuda.empty_cache()
@@ -1609,10 +1606,10 @@ def capture_mesh_gather(field, path: str, resolution: int = 128,
 
     hashgrid.level_gather = record
     try:
-        reset_counts()
+        c0 = read_counts()
         info = mesh_export.export_mesh(field, path, resolution=resolution,
                                        **(export_kw or {"cano": True}))[2]
-        launches = read_counts()
+        launches = counts_since(c0)
     finally:
         hashgrid.level_gather = real
     return (first[0] if first else None), launches, info
@@ -1848,8 +1845,8 @@ def timed_steps(trainer, n: int, label: str) -> dict:
     kernel's launches counted from 0 just before and read after: the step
     times, losses and launches per step; fails on a non-finite loss."""
     import torch
-    step_ms, losses, per_step = [], [], {k: [] for k in wrappers()}
-    reset_counts()
+    step_ms, losses, per_step = [], [], {k: [] for k in read_counts()}
+    c0 = read_counts()
     for _ in range(n):
         n0 = read_counts()
         torch.cuda.synchronize()
@@ -1864,7 +1861,7 @@ def timed_steps(trainer, n: int, label: str) -> dict:
         raise AssertionError(f"{label}: non-finite loss {losses}")
     return {"step_ms": statistics.median(step_ms),
             "steps_ms": step_ms, "losses": losses,
-            "launches_per_step": per_step, "launches": read_counts()}
+            "launches_per_step": per_step, "launches": counts_since(c0)}
 
 
 def check_launches(label: str, mode: str, per_step: dict):
@@ -1935,12 +1932,12 @@ def mode_run(device, ds, cfg, label: str, n_timed: int,
     mode = trainer.spec.grid.vjp_mode
     before = [p.detach().clone() for p in trainer.params]
     torch.cuda.reset_peak_memory_stats(device)
-    reset_counts()
+    c0 = read_counts()
     t0 = time.perf_counter()
     loss0 = trainer.train_one_epoch(n_iters=1)
     torch.cuda.synchronize(device)
     epoch_s = time.perf_counter() - t0
-    first, n_first = read_counts(), trainer.global_step
+    first, n_first = counts_since(c0), trainer.global_step
     if not _finite([loss0]):
         raise AssertionError(f"{label}: non-finite epoch loss {loss0}")
     for k, v in first.items():
@@ -2139,13 +2136,13 @@ def sds_adan_step(device, ds) -> dict:
     trainer.real_step(epoch)
     names = trainer.optim.names
     before = [p.detach().clone() for p in trainer.params]
-    reset_counts()
+    c0 = read_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss, _ = trainer.virtual_step(epoch, sampler)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = read_counts()
+    launches = counts_since(c0)
     moved = {optim.group_of(n) for n, a, b in zip(names, before,
                                                   trainer.params)
              if not torch.equal(a, b)}
@@ -2734,13 +2731,17 @@ def dp_chain(red, device, cfg, ds) -> dict:
     return out
 
 
-def _count_collectives(red, fn):
-    """fn() with its all-reduces counted by the reducer, a replayed graph's
-    as its capture recorded them: (its result, {calls, bytes})."""
-    before = red.all_reduces, red.all_reduce_bytes
+def _count_collectives(fn):
+    """fn() with its all-reduces counted by the reducer's host counters
+    (dp.all_reduces, dp.all_reduce_bytes), a replayed graph's as its
+    capture counted them: (its result, {calls, bytes})."""
+    from morpheus_tpu_torch import trace
+    before = trace.counts()
     out = fn()
-    return out, {"calls": red.all_reduces - before[0],
-                 "bytes": red.all_reduce_bytes - before[1]}
+    after = trace.counts()
+    return out, {k: int(after.get(name, 0) - before.get(name, 0))
+                 for k, name in (("calls", "dp.all_reduces"),
+                                 ("bytes", "dp.all_reduce_bytes"))}
 
 
 def dp_real(red, device, cfg, ds, n_timed: int = DP_TIMED,
@@ -2776,7 +2777,7 @@ def dp_real(red, device, cfg, ds, n_timed: int = DP_TIMED,
     rng0 = copy.deepcopy(tr._np_rng)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    reset_counts()
+    c0 = read_counts()
     step_ms, losses = [], []
     for _ in range(n_timed):
         _sync(device)
@@ -2785,7 +2786,7 @@ def dp_real(red, device, cfg, ds, n_timed: int = DP_TIMED,
         _sync(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
-    launches = {"hist_rows": read_counts()}
+    launches = {"hist_rows": counts_since(c0)}
     peak = _peak_gb(device)
     after = [p.detach().clone() for p in tr.params] if rank0 else None
     if not _finite(losses):
@@ -2793,7 +2794,7 @@ def dp_real(red, device, cfg, ds, n_timed: int = DP_TIMED,
 
     if tr.global_step % cfg["tpu"]["occ_update_every"] == 0:
         tr.global_step += 1
-    _, coll = _count_collectives(red, lambda: tr.real_step(tr.epoch))
+    _, coll = _count_collectives(lambda: tr.real_step(tr.epoch))
     n_bucket = sum(p.numel() for p in tr.params) + 1
     bucket = torch.zeros(n_bucket, device=device)
     bucket_ms = []
@@ -2811,14 +2812,14 @@ def dp_real(red, device, cfg, ds, n_timed: int = DP_TIMED,
             tr.global_step += 1
         calls[mode] = []
         originals = recording(calls[mode], ["step"]) if rank0 else None
-        reset_counts()
+        c0 = read_counts()
         try:
             tr.real_step(tr.epoch)
             _sync(device)
         finally:
             if originals:
                 restore(originals)
-        counts = read_counts()
+        counts = counts_since(c0)
         if mode != "hist_rows":
             launches[mode] = counts
         called[mode] = {k: v for k, v in counts.items() if v}
@@ -2900,15 +2901,15 @@ def dp_chain_block(red, tr) -> dict:
     tr.train_one_epoch(n_iters=1)
     tr_cfg = tr.config["train"]
     steps = tr_cfg["virtual_freq"] + tr_cfg["real_freq"]
-    reset_counts()
+    c0 = read_counts()
     _sync(tr.device)
     t0 = time.perf_counter()
-    _, coll = _count_collectives(red, lambda: tr.train_one_epoch(n_iters=1))
+    _, coll = _count_collectives(lambda: tr.train_one_epoch(n_iters=1))
     _sync(tr.device)
     out = {"graphed": tr.graphed, "steps": steps,
            "step_ms": (time.perf_counter() - t0) * 1e3 / steps,
            "collectives_per_step": coll["calls"] / steps,
-           "launches": read_counts(), "captures": list(tr.captures)}
+           "launches": counts_since(c0), "captures": list(tr.captures)}
     if tr.graphed and (not tr.captures or min(
             c["all_reduces"] for c in tr.captures) < 1):
         raise AssertionError(f"rank {red.rank}: the chained data-parallel "
@@ -2954,7 +2955,7 @@ def dp_sds(red, device, cfg, ds, epoch: int = DP_SDS_EPOCH,
     tr.optim.update = record
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    reset_counts()
+    c0 = read_counts()
     step_ms, losses = [], []
     try:
         for _ in range(n):
@@ -2966,7 +2967,7 @@ def dp_sds(red, device, cfg, ds, epoch: int = DP_SDS_EPOCH,
             losses.append(float(loss))
     finally:
         del tr.optim.update
-    launches = read_counts()
+    launches = counts_since(c0)
     peak = _peak_gb(device)
     if not _finite(losses) or not applied:
         raise AssertionError(f"data-parallel SDS step: losses {losses}, "
@@ -3397,7 +3398,7 @@ def chain_blocks(tr, deterministic: bool) -> dict:
     import warnings
 
     import torch
-    reset_counts()
+    c0 = read_counts()
     torch.use_deterministic_algorithms(deterministic, warn_only=True)
     losses = []
     try:
@@ -3413,7 +3414,7 @@ def chain_blocks(tr, deterministic: bool) -> dict:
     finally:
         torch.use_deterministic_algorithms(False)
     return {"losses": losses, "seconds": time.perf_counter() - t0,
-            "launches": read_counts(), "captures": list(tr.captures)}
+            "launches": counts_since(c0), "captures": list(tr.captures)}
 
 
 def chain_compare(eager, graphed, bitwise: bool, losses=((), ())) -> dict:

@@ -138,12 +138,10 @@ def build_guidance(config, device, log):
 
 
 def kernel_launches() -> dict:
-    """The launches of each hand-written kernel in this process."""
-    from .ops import gather, hist, rows, segsum
-    return {"level_histogram": hist.level_histogram.launches,
-            "level_gather": gather.level_gather.launches,
-            "segment_sum_sorted": segsum.segment_sum_sorted.launches,
-            "row_gather": rows.row_gather.launches}
+    """The launches of each hand-written kernel in this process (trace.py's
+    host counters, read without a synchronize)."""
+    from . import kernels, trace
+    return kernels.launches(trace.counts())
 
 
 def main(argv=None):

@@ -4,11 +4,14 @@ float32), one a key, held by each Zero123Guidance.
 
 At CFG batch 2 on a 32^2 latent the forward is ~1,300 small kernels whose
 launches from Python take several times their device time; a replay
-launches them all at once. A graph reads the addresses it saw at capture:
-its inputs are copied into static buffers, the UNet's weights are read
-where they lie (an in-place copy_ into a weight is followed by the
-replay), and the output is a static buffer that the next replay
-overwrites, so each replay returns a clone of it.
+launches them all at once. A key's first call captures its graph through
+graphs.capture (an eager warm-up on a side stream, whose output the call
+returns, then the capture; capture_s and pool_mb on the graph). A graph
+reads the addresses it saw at capture: its inputs are copied into static
+buffers, the UNet's weights are read where they lie (an in-place copy_
+into a weight is followed by the replay), and the output is a static
+buffer that the next replay overwrites, so each replay returns a clone of
+it.
 
 A graph's key (key()) holds the inputs' shapes and dtypes, and the state
 that decides which kernels an eager call runs and what they read: the
@@ -20,12 +23,10 @@ trainer drops a step graph that no longer fits.
 """
 from __future__ import annotations
 
-import time
-
 import torch
 from torch import nn
 
-from .. import trace
+from .. import graphs, trace
 
 
 def settings() -> tuple:
@@ -36,29 +37,23 @@ def settings() -> tuple:
 
 
 class _Graph:
-    """One capture of body(x, t, context) on static copies of the inputs;
-    capture_s and pool_mb (the card memory its private pool took) are
-    measured at capture."""
+    """One capture of body(x, t, context) on static copies of the inputs
+    (graph: its graphs.Graph); built by capture(), which returns the
+    warm-up's output beside it."""
 
-    def __init__(self, body, x, t, context):
-        dev = x.device
-        self.inputs = [a.clone() for a in (x, t, context)]
-        self.graph = torch.cuda.CUDAGraph()
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph):
-            self.out = body(*self.inputs)
-        torch.cuda.synchronize(dev)
-        self.capture_s = time.perf_counter() - t0
-        self.pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+    def __init__(self, inputs, graph):
+        self.inputs, self.graph = inputs, graph
+
+    @classmethod
+    def capture(cls, body, x, t, context) -> tuple:
+        inputs = [a.clone() for a in (x, t, context)]
+        out, graph = graphs.capture(lambda: body(*inputs), x.device)
+        return out, cls(inputs, graph)
 
     def replay(self, x, t, context) -> torch.Tensor:
         for s, a in zip(self.inputs, (x, t, context)):
             s.copy_(a)
-        self.graph.replay()
-        return self.out.clone()
+        return self.graph.replay().clone()
 
 
 class UNetGraphs:
@@ -83,8 +78,8 @@ class UNetGraphs:
                  ) -> torch.Tensor:
         """body(x, t, context) on CUDA inputs: a replay of this key's graph,
         or at a key's first call body's eager output, the graph captured
-        after it (capture). Graphs whose state no longer holds are dropped
-        first. A failed capture raises."""
+        after it (_Graph.capture). Graphs whose state no longer holds are
+        dropped first. A failed capture raises."""
         key = self.key(x, t, context, compute_dtype)
         for k in [k for k in self.graphs if k[1] != key[1]]:
             del self.graphs[k]
@@ -92,19 +87,5 @@ class UNetGraphs:
         if graph is not None:
             trace.count("unet.replays")
             return graph.replay(x, t, context)
-        out, self.graphs[key] = capture(body, x, t, context)
+        out, self.graphs[key] = _Graph.capture(body, x, t, context)
         return out
-
-
-def capture(body, x, t, context) -> tuple:
-    """(body's output, its _Graph): body once, eagerly, on a side stream
-    (the warm-up: it loads the cuDNN and cuBLAS handles and picks the
-    algorithms), then the capture, which runs nothing."""
-    main = torch.cuda.current_stream(x.device)
-    side = torch.cuda.Stream(x.device)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        out = body(x, t, context)
-    main.wait_stream(side)
-    torch.cuda.synchronize(x.device)
-    return out, _Graph(body, x, t, context)

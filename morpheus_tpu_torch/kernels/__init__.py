@@ -46,6 +46,14 @@ SIGNATURES = {
     },
 }
 
+
+def launches(counts: dict) -> dict:
+    """{kernel: int}: each kernel's launches in `counts`, host counters of
+    trace.py (a read, or what a capture counted), zeros included. Each
+    wrapper counts "<kernel>.launches" once a launch on a CUDA tensor."""
+    return {k: int(counts.get(k + ".launches", 0)) for k in SIGNATURES}
+
+
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}
 

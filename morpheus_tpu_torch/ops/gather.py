@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 
 WIN = 128           # lanes of one packed table row (gather_pallas.WIN)
 MAX_LEVELS = 64
@@ -128,8 +128,6 @@ def level_gather(idx_local: torch.Tensor, emb: torch.Tensor, level_starts,
     if rc != 0:
         raise RuntimeError(f"level_gather kernel launch failed: CUDA error "
                            f"{rc}")
-    level_gather.launches += 1
+    trace.count("level_gather.launches")
     return out
 
-
-level_gather.launches = 0

@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 
 MAX_LEVELS = 64
 
@@ -94,8 +94,6 @@ def level_histogram(idx_local: torch.Tensor, vals: torch.Tensor, level_starts,
     if rc != 0:
         raise RuntimeError(f"level_histogram kernel launch failed: CUDA error "
                            f"{rc}")
-    level_histogram.launches += 1
+    trace.count("level_histogram.launches")
     return out
 
-
-level_histogram.launches = 0

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 
 MAX_LEVELS = 64
 
@@ -86,8 +86,6 @@ def row_gather(idx_local: torch.Tensor, emb: torch.Tensor,
         raise RuntimeError(f"row_gather kernel launch failed on rows of "
                            f"{emb.shape[1] * emb.element_size()} bytes: CUDA "
                            f"error {rc}")
-    row_gather.launches += 1
+    trace.count("row_gather.launches")
     return out
 
-
-row_gather.launches = 0

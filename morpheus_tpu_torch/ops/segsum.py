@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 
 
 def _check(sorted_idx, vals, size, order):
@@ -108,11 +108,9 @@ def segment_sum_sorted(sorted_idx: torch.Tensor, vals: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"segment_sum_sorted kernel launch failed: CUDA "
                            f"error {rc}")
-    segment_sum_sorted.launches += 1
+    trace.count("segment_sum_sorted.launches")
     return out
 
-
-segment_sum_sorted.launches = 0
 
 
 def segment_sum_unsorted(idx: torch.Tensor, vals: torch.Tensor,

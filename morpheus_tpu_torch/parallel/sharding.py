@@ -56,6 +56,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
+
 # rank 0 alone exports the meshes (every frame at 256^3 at the final epoch)
 # and renders the videos while the other ranks wait in the next collective
 TIMEOUT = datetime.timedelta(hours=3)
@@ -70,9 +72,6 @@ class Reducer:
         self.rank = 0 if group is None else dist.get_rank(group)
         self.world = 1 if group is None else dist.get_world_size(group)
         self.backend = None if group is None else dist.get_backend(group)
-        # the all-reduces issued and their bytes, counted on the host where
-        # each is called (a replayed graph adds those its capture recorded)
-        self.all_reduces = self.all_reduce_bytes = 0
 
     @property
     def active(self) -> bool:
@@ -98,9 +97,10 @@ class Reducer:
         return Reducer(dist.group.WORLD)
 
     def all_reduce(self, x: torch.Tensor) -> None:
-        """x summed over the ranks, in place, counted."""
-        self.all_reduces += 1
-        self.all_reduce_bytes += x.numel() * x.element_size()
+        """x summed over the ranks, in place, counted on the host
+        (trace.py's dp.all_reduces and dp.all_reduce_bytes)."""
+        trace.count("dp.all_reduces")
+        trace.count("dp.all_reduce_bytes", x.numel() * x.element_size())
         dist.all_reduce(x, group=self.group)
 
     def total(self, x: torch.Tensor) -> torch.Tensor:

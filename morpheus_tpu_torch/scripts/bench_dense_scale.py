@@ -35,6 +35,7 @@ TOL = 1e-5
 
 
 def run(device, smoke: bool = False, reps: int = 20, log=bench.log) -> list:
+    from morpheus_tpu_torch.__main__ import kernel_launches
     from morpheus_tpu_torch.ops import segsum
     S = 4096 if smoke else 49152
     tables = [1 << 12] if smoke else [1 << 15, 1 << 17, 1 << 19]
@@ -56,10 +57,10 @@ def run(device, smoke: bool = False, reps: int = 20, log=bench.log) -> list:
                 return segsum.segment_sum_unsorted(idx, ct, T)
 
             want = scatter()
-            n0 = segsum.segment_sum_sorted.launches
+            n0 = kernel_launches()["segment_sum_sorted"]
             err = float((sseg() - want).abs().max()) / float(
                 want.abs().max())
-            launches = segsum.segment_sum_sorted.launches - n0
+            launches = kernel_launches()["segment_sum_sorted"] - n0
             tf = bench.time_ms(lambda: emb.index_select(0, idx), device, reps)
             tsc = bench.time_ms(scatter, device, reps)
             tss = bench.time_ms(sseg, device, reps)

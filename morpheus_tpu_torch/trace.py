@@ -4,7 +4,8 @@
         ...
     trace.fill("real", mask)    # a fixed-size stream's fill counters
     trace.count("unet.calls")   # a host counter
-    trace.read()        # {name: float}, one synchronize a device
+    trace.counts()      # {name: float}: the host counters, no synchronize
+    trace.read()        # {name: float}: all counters, one synchronize a device
     trace.reset()       # every counter to 0, in place
 
 A span is torch.profiler.record_function(name) while a torch.profiler
@@ -25,9 +26,11 @@ Fill counters are float64 scalars on the device. allocate() puts them in
 place before any capture, so that a captured fill() adds into tensors that
 live as long as the graph, and a replay adds as the eager step does. fill()
 never reads to the host. Host counters (count()) are floats that add on
-the host, as a call is made: inside a captured body one counts the capture
-alone, never a replay, so they count calls made outside graphs (how often
-a call replays a graph of its own).
+the host, as a call is made: the port's one kind of host counter (the
+kernel wrappers' "<kernel>.launches", the reducer's "dp.all_reduces" and
+"dp.all_reduce_bytes", the UNet's "unet.calls" and "unet.replays"). A host
+counter counts the calls the run made: a replay of a CUDA graph adds what
+its capture counted (graphs.capture, where that rule lives).
 """
 from __future__ import annotations
 
@@ -91,10 +94,16 @@ def count(name: str, n: float = 1.0) -> None:
     _host[name] = _host.get(name, 0.0) + n
 
 
+def counts() -> dict:
+    """{name: float}: the host counters, read without touching a device
+    (between timed calls)."""
+    return dict(_host)
+
+
 def read() -> dict:
     """{name: float}: the host counters and the fill counters, summed over
     devices; one synchronize for each device that holds counters."""
-    out = dict(_host)
+    out = counts()
     by_device = {}
     for (name, dev), t in _device.items():
         by_device.setdefault(dev, []).append((name, t))

@@ -23,13 +23,14 @@ of the real_freq real steps, trainer.py:343-370 and :864-900 there) the
 epoch loop's real steps on a card replay a CUDA graph of the real step's
 body (_StepGraph: the batch draws, the loss, its gradients, the fold of
 the carried gradients and the optimizer update), captured once for each
-active-level count after an eager warm-up step and evicted when the
-count moves on. The body reads the curriculum's learning rate, max_level
-and loss weights from device buffers (schedule.StepScalars) where the
-JAX step reads its traced epoch; the occupancy refresh stays outside the
-graph, on the host's cadence, and writes the grid in place, as does every
-other writer of a tensor the graph reads. On the CPU the same body runs
-eagerly (the graph's plain twin). chain_steps false runs the eager step.
+active-level count after an eager warm-up step (graphs.capture) and
+evicted when the count moves on. The body reads the curriculum's learning
+rate, max_level and loss weights from device buffers
+(schedule.StepScalars) where the JAX step reads its traced epoch; the
+occupancy refresh stays outside the graph, on the host's cadence, and
+writes the grid in place, as does every other writer of a tensor the
+graph reads. On the CPU the same body runs eagerly (the graph's plain
+twin). chain_steps false runs the eager step.
 
 Under tpu.data_parallel N the trainer is one of N ranks of a process
 group (parallel/sharding.py; the port of trainer.py:114-130 and
@@ -65,14 +66,13 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from .. import renderer, trace
+from .. import graphs, kernels, renderer, trace
 from ..data import dataset as data_lib
 from ..model.field import (SHADING_ALBEDO, SHADING_LAMBERTIAN,
                            SHADING_TEXTURELESS, Field, FieldSpec)
 from ..ops import density as density_lib
-from ..ops import gather, hist, occupancy, segsum
+from ..ops import occupancy
 from ..ops.hashgrid import HashGridSpec, active_count
-from ..ops.rows import row_gather
 from ..parallel import sharding
 from ..utils import Draws, resolve_device
 from . import losses, optim
@@ -80,10 +80,6 @@ from .schedule import Curriculum, StepScalars
 
 OCC_CHUNK = 32768
 
-# the hand-written kernels' wrappers, whose launch counters a replayed graph
-# advances by the calls its capture recorded
-KERNEL_WRAPPERS = (hist.level_histogram, gather.level_gather,
-                   segsum.segment_sum_sorted, row_gather)
 # the steps' compacted sample streams and the band term's candidate sites
 # (render_rays' band_mask, either form), whose fill the device counters
 # <stream>.samples_valid and <stream>.samples_slots count (trace.fill)
@@ -133,61 +129,23 @@ class _Replay:
 
 
 class _StepGraph:
-    """A CUDA graph of Trainer._real_body, captured on the trainer's
-    current state. The draws' generator is registered with the graph, so
-    that each replay advances it as the eager body would. replay() returns
-    the loss, a buffer of the graph that the next replay overwrites. A
-    wrapper's launch counter counts its host calls, and the reducer its
-    all-reduces: the capture runs nothing, so its calls are taken back off
-    the counters and added again at each replay (recorded, all_reduces).
-    capture_s and pool_mb (the card memory the graph's private pool holds)
-    are measured at capture, and the body's spans map its device nodes as
-    it is captured (trace.capture_phases: phases, nested, device_nodes,
-    None where the map was lost). The graph holds for the step field's spec, the
-    occupancy state and the reducer it was captured against, whose tensors
-    (and the staged batch's) are written in place, never rebound, while it
-    lives (fits)."""
+    """A CUDA graph of Trainer._real_body (a graphs.Graph) and the state it
+    was captured against: the step field's spec, the occupancy state and
+    the reducer, whose tensors (and the staged batch's) are written in
+    place, never rebound, while it lives (fits). replay() returns the
+    loss, a buffer of the graph that the next replay overwrites."""
 
-    def __init__(self, trainer: "Trainer"):
-        dev, red = trainer.device, trainer.dp
+    def __init__(self, trainer: "Trainer", graph):
+        self.graph = graph
         self.spec, self.occ = trainer.step_field.spec, trainer.occ
-        self.red = red
-        self.graph = torch.cuda.CUDAGraph()
-        if isinstance(trainer.draws, Draws):
-            self.graph.register_generator_state(trainer.draws.generator)
-        before = [f.launches for f in KERNEL_WRAPPERS]
-        reduces = (red.all_reduces, red.all_reduce_bytes)
-        nodes = trace.NodeMap()
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph), trace.capture_phases(nodes):
-            self.loss = trainer._real_body()
-        torch.cuda.synchronize(dev)
-        self.phases, self.nested = nodes.phases, nodes.nested
-        self.device_nodes = nodes.device_nodes
-        self.capture_s = time.perf_counter() - t0
-        self.pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
-        self.recorded = [f.launches - b for f, b in zip(KERNEL_WRAPPERS,
-                                                        before)]
-        for f, b in zip(KERNEL_WRAPPERS, before):
-            f.launches = b
-        self.all_reduces = red.all_reduces - reduces[0]
-        self.all_reduce_bytes = red.all_reduce_bytes - reduces[1]
-        red.all_reduces, red.all_reduce_bytes = reduces
+        self.red = trainer.dp
 
     def fits(self, trainer: "Trainer") -> bool:
         return (self.spec == trainer.step_field.spec
                 and self.occ is trainer.occ and self.red is trainer.dp)
 
     def replay(self) -> torch.Tensor:
-        self.graph.replay()
-        for f, n in zip(KERNEL_WRAPPERS, self.recorded):
-            f.launches += n
-        self.red.all_reduces += self.all_reduces
-        self.red.all_reduce_bytes += self.all_reduce_bytes
-        return self.loss
+        return self.graph.replay()
 
 
 class Trainer:
@@ -276,7 +234,7 @@ class Trainer:
                         and self.dp.backend in (None, "nccl"))
         # one line per capture: {"active_levels", "warmup_s", "capture_s",
         # "pool_mb", "launches", "all_reduces", "all_reduce_bytes",
-        # "phases", "device_nodes"}
+        # "phases", "nested", "device_nodes"}
         self.captures: list = []
         trace.allocate(SAMPLE_STREAMS, self.device)
         self.global_step = 0
@@ -865,31 +823,23 @@ class Trainer:
         return loss
 
     def _capture(self):
-        """(the warm-up step's loss, its _StepGraph): the body once,
-        eagerly, on a side stream (it loads the kernels and fills every
-        cached constant: a copy from host memory cannot be captured), then
-        the capture of the body, which runs nothing. A failed capture
-        raises."""
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side):
-            loss = self._real_body()
-        main.wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        warmup_s = time.perf_counter() - t0
-        graph = _StepGraph(self)
+        """(the warm-up step's loss, its _StepGraph): graphs.capture of the
+        body, the draws' generator registered with the graph so that each
+        replay advances it as the eager body would. The capture's line in
+        self.captures gives its seconds, pool, span map and the kernel
+        launches and all-reduces of one replay. A failed capture raises."""
+        gens = ((self.draws.generator,) if isinstance(self.draws, Draws)
+                else ())
+        loss, g = graphs.capture(self._real_body, self.device, gens)
         self.captures.append({
-            "active_levels": self._active_levels(), "warmup_s": warmup_s,
-            "capture_s": graph.capture_s, "pool_mb": graph.pool_mb,
-            "launches": dict(zip((f.__name__ for f in KERNEL_WRAPPERS),
-                                 graph.recorded)),
-            "all_reduces": graph.all_reduces,
-            "all_reduce_bytes": graph.all_reduce_bytes,
-            "phases": graph.phases, "nested": graph.nested,
-            "device_nodes": graph.device_nodes})
-        return loss, graph
+            "active_levels": self._active_levels(), "warmup_s": g.warmup_s,
+            "capture_s": g.capture_s, "pool_mb": g.pool_mb,
+            "launches": kernels.launches(g.counts),
+            "all_reduces": int(g.counts.get("dp.all_reduces", 0)),
+            "all_reduce_bytes": int(g.counts.get("dp.all_reduce_bytes", 0)),
+            "phases": g.phases, "nested": g.nested,
+            "device_nodes": g.device_nodes})
+        return loss, _StepGraph(self, g)
 
     def _grads(self, loss):
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)

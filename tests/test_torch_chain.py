@@ -29,9 +29,9 @@ import pytest
 import torch
 
 import torch_parity as tp
+from graph_stubs import stub_capture
 from morpheus_tpu_torch.config import merge_defaults
 from morpheus_tpu_torch.data.dataset import load_synthetic
-from morpheus_tpu_torch.train import trainer as trainer_mod
 from morpheus_tpu_torch.train.trainer import Trainer
 
 torch.set_num_threads(1)
@@ -174,26 +174,11 @@ def test_step_state_keeps_its_addresses():
     assert addresses(tr) == before
 
 
-class StubGraph(trainer_mod._StepGraph):
-    """A "graph" whose replay runs the body eagerly; made by a stub
-    capture that runs the warm-up step as the real capture does."""
-
-    def __init__(self, tr, made):
-        self.spec, self.occ, self.tr = tr.step_field.spec, tr.occ, tr
-        self.red = tr.dp
-        self.replays = 0
-        made.append(self)
-
-    def replay(self):
-        self.replays += 1
-        return self.tr._real_body()
-
-
-def test_graph_cache_keys_on_active_levels():
+def test_graph_cache_keys_on_active_levels(monkeypatch):
     tr = port_trainer(True, n_epochs=8)
     made = []
     tr.graphed = True            # the card's path, with the stub capture
-    tr._capture = lambda: (tr._real_body(), StubGraph(tr, made))
+    stub_capture(monkeypatch, made)
     tr.epoch = 0                 # max_level 0.5: 2 of the 4 levels
     tr.train_one_epoch()
     assert list(tr._graphs) == [2] and len(made) == 1
@@ -213,7 +198,8 @@ def test_graph_cache_keys_on_active_levels():
     tr.set_spec(normal_mode="fd")
     assert tr._graphs == {}
     tr.train_one_epoch()
-    assert len(made) == 4 and made[3].spec.normal_mode == "fd"
+    assert len(made) == 4 and tr._graphs[4].graph is made[3]
+    assert tr._graphs[4].spec.normal_mode == "fd"
     # a rebound occupancy state is not the one the graph reads
     tr.occ = tr.occ._replace(occs=tr.occ.occs.clone())
     tr.train_one_epoch()

@@ -2,17 +2,17 @@
 the CPU: apply_unet on CPU tensors runs the eager body and counts its call;
 the graphs' key holds the inputs' shapes and dtypes, the compute type, the
 backend settings and the UNet's weight addresses; the holder replays a
-key's graph and drops one whose state no longer holds (a stub capture
-stands in for CUDA's); the host counters of trace.py beside the fill
-counters; and the benchmark's reader of the graphs' share."""
+key's graph and drops one whose state no longer holds (a stub of
+graphs.capture stands in for CUDA's); the host counters of trace.py beside
+the fill counters; and the benchmark's reader of the graphs' share."""
 import importlib.util
 import os
 
 import pytest
 import torch
 
+from graph_stubs import stub_capture
 from morpheus_tpu_torch import trace
-from morpheus_tpu_torch.guidance import unet_graph
 from morpheus_tpu_torch.guidance import zero123 as z123
 
 torch.set_num_threads(1)
@@ -118,23 +118,9 @@ def test_key(name, change, changes, monkeypatch):
     assert (after[0] != before[0]) == inputs_part
 
 
-class StubGraph:
-    """A capture that runs body again at each replay."""
-
-    made = 0
-
-    def __init__(self, body):
-        self.body = body
-        StubGraph.made += 1
-
-    def replay(self, x, t, context):
-        return self.body(x, t, context)
-
-
 def test_graphs_replay_a_key_and_drop_what_no_longer_holds(monkeypatch):
-    monkeypatch.setattr(unet_graph, "capture", lambda body, *a: (
-        body(*a), StubGraph(body)))
-    StubGraph.made = 0
+    made = []
+    stub_capture(monkeypatch, made)
     g = guidance()
     graphs = g.unet_graphs
 
@@ -148,18 +134,18 @@ def test_graphs_replay_a_key_and_drop_what_no_longer_holds(monkeypatch):
     assert torch.equal(run(*a), want[0])             # captured
     assert torch.equal(run(*b), want[1])             # replayed
     assert torch.equal(run(*a), want[0])             # replayed
-    assert StubGraph.made == 1 and len(graphs.graphs) == 1
+    assert len(made) == 1 and len(graphs.graphs) == 1
     assert trace.read()["unet.replays"] == 2.0
     run(*inputs(g, batch=4))                         # a second key
-    assert StubGraph.made == 2 and len(graphs.graphs) == 2
+    assert len(made) == 2 and len(graphs.graphs) == 2
     _rebind(g)                                       # both keys fail
     run(*a)
-    assert StubGraph.made == 3 and len(graphs.graphs) == 1
+    assert len(made) == 3 and len(graphs.graphs) == 1
     assert trace.read()["unet.replays"] == 2.0
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32",
                         not torch.backends.cuda.matmul.allow_tf32)
     run(*a)
-    assert StubGraph.made == 4 and len(graphs.graphs) == 1
+    assert len(made) == 4 and len(graphs.graphs) == 1
 
 
 def test_host_counters_beside_the_fill_counters():
