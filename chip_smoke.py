@@ -71,11 +71,13 @@ Phases, in order; any failure exits non-zero:
      each operating point (epoch 300: scale 0.2, 5,184 rays, the deform
      freeze on, so Adam steps; epoch 900: scale 0.5, 32,400 rays, the
      freeze off, so the gradients are carried and a real step folds them
-     in) with launches per step, peak memory and a 2-step trace split into
-     render, VAE encoder, UNet and Adam (`sds point:` and `sds trace:`
-     lines); then one SDS step at scale 0.5 captured under hist_rows,
-     mxu_rows and sort_pallas_rows, whose calls become kernel lines
-     step_sds_<mode>_<i>; and a tiny SDS run on the card against the CPU;
+     in; replays of the SDS step's graph after an untimed first step that
+     captures it) with launches per step, peak memory and a 2-step trace
+     of the eager step split into render, VAE encoder, UNet and Adam
+     (`sds point:` and `sds trace:` lines); then one eager SDS step at
+     scale 0.5 captured under hist_rows, mxu_rows and sort_pallas_rows,
+     whose calls become kernel lines step_sds_<mode>_<i>; and a tiny SDS
+     run on the card against the CPU;
   9. the trainer CLI (python -m morpheus_tpu_torch) at the widths of
      configs/synthetic_bench.yaml with its frames, epochs and diagnostic
      cadence cut (CLI_CUTS): first one canonical mesh export under
@@ -178,12 +180,21 @@ Phases, in order; any failure exits non-zero:
      block names each kernel as often as its counter says; then the eager
      and the graphed step's real_step_ms, the epoch loop's rays/s of each,
      the captures' seconds and pool memory (`chain:`, `chain timing:`
-     lines; the kernels line's chain_launches).
+     lines; the kernels line's chain_launches); then the SDS step's graph
+     (sds_chain): at 72^2 and 180^2 views, the freeze on and off,
+     remat_virtual on and off, an eager and a graphed trainer of
+     configs/synthetic_full.yaml with the "<random-tiny>" Zero123 from the
+     same seed take 4 SDS steps, each followed by 2 chained real steps,
+     under sort_pallas_rows with deterministic algorithms, at epochs of
+     one key whose timestep bounds differ where the freeze is off: one
+     capture, and every state and loss bit for bit (`sds chain:` lines
+     with the capture's seconds, pool MB and device nodes).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1114,9 +1125,22 @@ def instrument_sds(trainer, marks):
     return undo
 
 
+@contextlib.contextmanager
+def eager_sds(trainer):
+    """The trainer's SDS steps run their body eagerly inside the block: a
+    replay of the step's graph calls none of the functions that
+    instrument_sds and recording wrap."""
+    graphed = trainer.graphed
+    trainer.graphed = False
+    try:
+        yield
+    finally:
+        trainer.graphed = graphed
+
+
 def sds_trace(trainer, sampler, epoch: int, n: int = 2) -> dict:
-    """n SDS steps under torch.profiler, at global steps that refresh no
-    occupancy: the device's busy ms and idle share, the busy ms split into
+    """n eager SDS steps under torch.profiler, at global steps that refresh
+    no occupancy: the device's busy ms and idle share, the busy ms split into
     render (forward and backward), VAE encoder (forward and backward), UNet,
     Adam and the rest (split_busy over _Marks), the same parts' spans on the
     device's clock (CUDA events, idle included), and the top kernels."""
@@ -1144,9 +1168,10 @@ def sds_trace(trainer, sampler, epoch: int, n: int = 2) -> dict:
             marks.append(_Marks())
             undo = instrument_sds(trainer, marks[-1])
             try:
-                marks[-1]("step")
-                trainer.virtual_step(epoch, sampler)
-                marks[-1]("step_end")
+                with eager_sds(trainer):
+                    marks[-1]("step")
+                    trainer.virtual_step(epoch, sampler)
+                    marks[-1]("step_end")
             finally:
                 undo()
         torch.cuda.synchronize()
@@ -1269,13 +1294,14 @@ def sds_point(trainer, epoch: int, scale_key: str, freeze: bool,
 
 
 def capture_sds_streams(trainer, epoch: int) -> list:
-    """The kernel calls of one SDS step at `epoch` (scale 0.5 past epoch
-    800), as the step makes them (recording)."""
+    """The kernel calls of one eager SDS step at `epoch` (scale 0.5 past
+    epoch 800), as the step makes them (recording)."""
     calls = []
     originals = recording(calls, ["sds"])
     try:
-        trainer.virtual_step(epoch, trainer.virtual_sampler(
-            trainer._novel_view_scale()))
+        with eager_sds(trainer):
+            trainer.virtual_step(epoch, trainer.virtual_sampler(
+                trainer._novel_view_scale()))
     finally:
         restore(originals)
     return calls
@@ -3519,6 +3545,123 @@ def chain_step_ms(tr, n: int = CHAIN_TIMED) -> list:
     return times
 
 
+# the SDS step's graph (sds_chain): (label, epochs, tpu overrides, train
+# overrides) of configs/synthetic_full.yaml with the "<random-tiny>"
+# Zero123; the epochs of a run share one key (view size, levels, albedo
+# phase, freeze), and where the freeze is off their timestep bounds differ
+SDS_CHAIN_RUNS = (
+    ("72_freeze_remat", (300, 301, 301, 300), {"remat_virtual": True}, {}),
+    ("72_carry", (700, 703, 706, 712), {"remat_virtual": False}, {}),
+    ("180_carry_remat", (1900, 1903, 1906, 1912), {"remat_virtual": True},
+     {}),
+    ("180_freeze", (1900, 1903, 1906, 1912), {"remat_virtual": False},
+     {"freeze_epoch": 2000}))
+# chained real steps after each SDS step
+SDS_CHAIN_REAL = 2
+
+
+def sds_chain_trainer(device, ds, graphed: bool, tpu: dict, train: dict):
+    """A Trainer of configs/synthetic_full.yaml under sort_pallas_rows with
+    the "<random-tiny>" Zero123 (every UNet weight that init_random zeroes
+    drawn, so that the UNet's output counts), one iteration an epoch, at
+    global step CHAIN_STEP0; its steps replay graphs where `graphed`, else
+    run their bodies eagerly."""
+    import torch
+    from morpheus_tpu_torch.__main__ import build_guidance
+    from morpheus_tpu_torch.config import load_config
+    from morpheus_tpu_torch.train.trainer import Trainer
+    cfg = load_config(os.path.join(HERE, "configs", "synthetic_full.yaml"))
+    cfg["guidance"]["zero123_ckpt"] = "<random-tiny>"
+    cfg["tpu"].update(vjp_mode="sort_pallas_rows", chain_steps=True, **tpu)
+    cfg["train"].update(n_iters=1, **train)
+    g = build_guidance(cfg, device, lambda *a: None)
+    gen = torch.Generator(device=device).manual_seed(6)
+    with torch.no_grad():
+        for p in g.unet.parameters():
+            if not bool(p.any()):
+                p.normal_(0.0, 0.02, generator=gen)
+    tr = Trainer(cfg, ds, device=device, guidance=g)
+    tr.graphed = graphed and tr.graphed
+    tr.global_step = tr.host_step = CHAIN_STEP0
+    return tr
+
+
+def sds_chain_steps(tr, epochs) -> list:
+    """An SDS step, then SDS_CHAIN_REAL chained real steps, at each epoch;
+    the SDS steps' losses."""
+    losses = []
+    for epoch in epochs:
+        tr.epoch = epoch
+        tr._set_levels(tr._active_levels())
+        loss, _ = tr.virtual_step(epoch, tr.virtual_sampler(
+            tr._novel_view_scale()))
+        losses.append(float(loss))
+        for _ in range(SDS_CHAIN_REAL):
+            tr.chained_real_step(epoch)
+    return losses
+
+
+def sds_chain(device, ds) -> dict:
+    """The SDS step's CUDA graph against its eager body (SDS_CHAIN_RUNS):
+    per run an eager and a graphed trainer from the same seed take the same
+    steps under deterministic algorithms; the graphed one captures once
+    (its first SDS step, eager, then 3 replays, each timestep drawn over
+    its epoch's bounds) and ends bit for bit equal to the eager one:
+    parameters, optimizer slots and step, occupancy grid, carried
+    gradients, generator state and SDS losses. `sds chain:` lines."""
+    import warnings
+
+    import torch
+    from morpheus_tpu_torch import trace
+    out = {}
+    for label, epochs, tpu, train in SDS_CHAIN_RUNS:
+        runs, c0 = {}, None
+        for graphed in (False, True):
+            tr = sds_chain_trainer(device, ds, graphed, tpu, train)
+            if graphed:
+                c0 = trace.counts()
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", UserWarning)
+                    losses = sds_chain_steps(tr, epochs)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            runs[graphed] = tr, losses
+        (eager, le), (graphed, lg) = runs[False], runs[True]
+        counted = {k: v - c0.get(k, 0.0) for k, v in trace.counts().items()
+                   if k.startswith("sds.")}
+        cmp = chain_compare(eager, graphed, bitwise=True, losses=(le, lg))
+        pending = all(torch.equal(x, y) for x, y in
+                      zip(eager.pending, graphed.pending))
+        curr = graphed.curr
+        run = {"view": [graphed.virtual_sampler(
+                   graphed._novel_view_scale()).H] * 2,
+               "freeze": [curr.freeze_deform(e) for e in epochs],
+               "remat": tpu["remat_virtual"], "epochs": list(epochs),
+               "sds_steps": [list(curr.sds_steps(e)) for e in epochs],
+               "losses": lg, "pending_equal": pending,
+               "pending_live": [eager._pending_live, graphed._pending_live],
+               "counted": counted, "captures": graphed.sds_captures,
+               "compare": cmp, "card": card_line()}
+        log("sds chain:", json.dumps({"run": label, **run}))
+        bad = list(cmp["failed"])
+        if not pending or eager._pending_live != graphed._pending_live:
+            bad.append("pending")
+        if len(graphed.sds_captures) != 1 or eager.sds_captures:
+            bad.append("captures")
+        if counted != {"sds.calls": float(len(epochs)),
+                       "sds.replays": float(len(epochs) - 1)}:
+            bad.append("counters")
+        if bad:
+            raise AssertionError(f"sds chain {label}: the graphed SDS step "
+                                 f"and the eager body differ in {bad}")
+        out[label] = run
+        del eager, graphed, runs
+        torch.cuda.empty_cache()
+    return out
+
+
 def chain_phase(device, ds) -> dict:
     """Phase 15: tpu.chain_steps on the card. For each of CHAIN_RUNS an
     eager and a graphed trainer from the same seed take the two blocks of
@@ -3529,7 +3672,8 @@ def chain_phase(device, ds) -> dict:
     every step of the graphed blocks, counted as each replay's captured
     calls; then one replayed block (10 steady chained steps) is traced and
     each kernel of the mode must be in it, as often as its counter says.
-    Then chain_timing under hist_rows. `chain:` lines; returns the
+    Then the SDS step's graph against its eager body (sds_chain), and
+    chain_timing under hist_rows. `chain:` lines; returns the
     result."""
     import torch
     from morpheus_tpu_torch.scripts.trace_step import trace_steps
@@ -3588,6 +3732,7 @@ def chain_phase(device, ds) -> dict:
         result["runs"][label] = run
         del graphed
         torch.cuda.empty_cache()
+    result["sds"] = sds_chain(device, ds)
     result["timing"] = chain_timing(device, ds)
     result["seconds"] = time.perf_counter() - t0
     log("chain timing:", json.dumps(result["timing"]))

@@ -8,6 +8,7 @@ read their cameras with (load_K_Rt_from_P).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -88,15 +89,22 @@ def look_at(cam_centers: torch.Tensor, targets=0.0) -> torch.Tensor:
     chirality (ref: dataset.py:225-266); the torch form of
     c2w_from_cam_center, with targets."""
     forward = safe_normalize(cam_centers - targets)
-    up = torch.tensor([0.0, 1.0, 0.0], device=cam_centers.device,
-                      dtype=cam_centers.dtype).expand(forward.shape)
+    up = _const((0.0, 1.0, 0.0), cam_centers.dtype,
+                cam_centers.device).expand(forward.shape)
     right = safe_normalize(torch.linalg.cross(up, forward, dim=-1))
     up = safe_normalize(torch.linalg.cross(forward, right, dim=-1))
     rot = torch.stack((right, up, forward), dim=-1)             # (B, 3, 3)
     top = torch.cat([rot, cam_centers[..., None]], -1)          # (B, 3, 4)
-    last = torch.tensor([0.0, 0.0, 0.0, 1.0], device=top.device,
-                        dtype=top.dtype).expand(top.shape[0], 1, 4)
+    last = _const((0.0, 0.0, 0.0, 1.0), top.dtype,
+                  top.device).expand(top.shape[0], 1, 4)
     return torch.cat([top, last], 1)
+
+
+@functools.lru_cache(maxsize=16)
+def _const(values: tuple, dtype, device) -> torch.Tensor:
+    """A small constant, made once per dtype and device: a copy from host
+    memory waits for the card, and a CUDA graph cannot capture one."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def polar_to_cam_center(radius, theta_rad, phi_rad) -> torch.Tensor:

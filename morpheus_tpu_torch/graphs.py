@@ -21,6 +21,10 @@ Host counters (trace.count) count the calls the run made. The capture
 runs nothing, so the counts its body made are taken back off as it ends
 and kept (counts); each replay adds them again, as the eager body would
 have. The warm-up's counts stay: it ran. A failed capture raises.
+
+capturing() says whether the current stream is capturing: a body that
+calls a function with a graph of its own (the SDS step calls the UNet's)
+runs that function's body in its place, so its kernels join the capture.
 """
 from __future__ import annotations
 
@@ -50,6 +54,13 @@ class Graph:
         for name, n in self.counts.items():
             trace.count(name, n)
         return self.out
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False where
+    there is no CUDA)."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
 
 
 def capture(body, device, generators=()) -> tuple:

@@ -59,8 +59,15 @@ def resize(x: torch.Tensor, size, method: str = "bilinear") -> torch.Tensor:
     Ho, Wo = size
     if (H, W) == (Ho, Wo):
         return x
-    wh = torch.as_tensor(weight_matrix(H, Ho, method), device=x.device,
-                         dtype=x.dtype)
-    ww = torch.as_tensor(weight_matrix(W, Wo, method), device=x.device,
-                         dtype=x.dtype)
+    wh = _weights(H, Ho, method, x.dtype, x.device)
+    ww = _weights(W, Wo, method, x.dtype, x.device)
     return torch.matmul(torch.matmul(wh.transpose(0, 1), x), ww)
+
+
+@functools.lru_cache(maxsize=64)
+def _weights(n_in: int, n_out: int, method: str, dtype, device
+             ) -> torch.Tensor:
+    """weight_matrix on `device`, copied there once: a copy from host
+    memory waits for the card, and a CUDA graph cannot capture one."""
+    return torch.as_tensor(weight_matrix(n_in, n_out, method), device=device,
+                           dtype=dtype)

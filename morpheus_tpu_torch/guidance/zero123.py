@@ -19,7 +19,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from .. import trace
+from .. import graphs, trace
 from ..utils import resolve_device
 from . import clip_vit, schedule, unet, vae
 from .layers import ResBlock, SpatialTransformer
@@ -224,9 +224,15 @@ def apply_unet(g: Zero123Guidance, x, t, context) -> torch.Tensor:
     """The epsilon prediction, without gradient, in float32; under
     compute_dtype bfloat16 the inputs go in as bfloat16. On a card, a
     replay of the CUDA graph of this key (g.unet_graphs; unet_graph.py),
-    captured at the key's first call, which runs eagerly; on the CPU,
-    eagerly. Counts unet.calls, and the graphs unet.replays (trace.py)."""
+    captured at the key's first call, which runs eagerly; inside the
+    capture of a body that calls it (the trainer's SDS step), the body
+    itself, whose kernels become that graph's; on the CPU, eagerly. Counts
+    unet.calls, and the graphs unet.replays (trace.py): a replay of the
+    enclosing graph replays the UNet's kernels and adds both again."""
     trace.count("unet.calls")
+    if graphs.capturing():
+        trace.count("unet.replays")
+        return _unet_body(g, x, t, context)
     if x.is_cuda:
         return g.unet_graphs(lambda *a: _unet_body(g, *a), x, t, context,
                              g.spec.compute_dtype)
@@ -304,14 +310,16 @@ def sds_loss(g: Zero123Guidance, draws, pred_rgb_256: torch.Tensor,
     'sds_t' (the timestep in [min_step, max_step]) and 'sds_noise'.
     Returns (loss, diag); diag holds what the guidance panels need. remat
     recomputes the VAE encoder forward in the backward instead of keeping
-    its activations (torch.utils.checkpoint; exact)."""
+    its activations (torch.utils.checkpoint; exact: the encoder draws
+    nothing, so no generator's state is kept for it)."""
     shape = (pred_rgb_256.shape[0], 4, g.spec.latent_size,
              g.spec.latent_size)
     eps = draws.normal("sds_posterior", shape)
     with trace.span("guidance.vae_encode"):
         if remat:
             latents = torch.utils.checkpoint.checkpoint(
-                vae_encode_sample, g, pred_rgb_256, eps, use_reentrant=False)
+                vae_encode_sample, g, pred_rgb_256, eps, use_reentrant=False,
+                preserve_rng_state=False)
         else:
             latents = vae_encode_sample(g, pred_rgb_256, eps)
     t = draws.randint("sds_t", (1,), min_step, max_step + 1)

@@ -65,9 +65,13 @@ def span(name: str):
 @contextlib.contextmanager
 def _phase(name: str, nodes: "NodeMap"):
     nodes.enter(name)
-    with torch.profiler.record_function(name) if _profiling() else _NULL:
-        yield
-    nodes.exit()
+    try:
+        with torch.profiler.record_function(name) if _profiling() else _NULL:
+            yield
+    finally:
+        # a span left by an exception closes too: a checkpoint's
+        # recomputation stops early by raising inside its spans
+        nodes.exit()
 
 
 # ---- counters ----

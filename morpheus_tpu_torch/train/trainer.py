@@ -32,6 +32,15 @@ writes the grid in place, as does every other writer of a tensor the
 graph reads. On the CPU the same body runs eagerly (the graph's plain
 twin). chain_steps false runs the eager step.
 
+The SDS virtual step on a card with no process group replays a CUDA graph
+of its body too (_virtual_body: the view, the render, the guidance, the
+backward and the freeze update or carry), one for each key (sds_key: the
+view size, the active levels, the albedo phase, the deform freeze,
+tpu.remat_virtual), captured at the key's first step after an eager
+warm-up; its per-epoch values are StepScalars' and its timestep bounds,
+which fall every few epochs late in a run, are no part of the key
+(_HeldT).
+
 Under tpu.data_parallel N the trainer is one of N ranks of a process
 group (parallel/sharding.py; the port of trainer.py:114-130 and
 _train_one_epoch_dp, :740-848, of the JAX package): every rank holds the
@@ -91,8 +100,10 @@ class RecordedDraws:
     checkpointed region records every draw, each later pass (a backward's
     recomputation, or one that an autograd.grad inside the region starts
     while the first pass runs) reads the same values back in the same order
-    from a cursor of its own. torch.utils.checkpoint restores the global
-    generators only, not a draw source's own."""
+    from a cursor of its own. torch.utils.checkpoint could restore the
+    global generators only, not a draw source's own; no draw of the step
+    reads them, so it is not asked to (a CUDA graph's capture cannot read
+    a generator's state)."""
 
     def __init__(self, draws):
         self.draws, self.values, self.started = draws, [], False
@@ -128,15 +139,84 @@ class _Replay:
     uniform = normal = randint = _next
 
 
-class _StepGraph:
-    """A CUDA graph of Trainer._real_body (a graphs.Graph) and the state it
-    was captured against: the step field's spec, the occupancy state and
-    the reducer, whose tensors (and the staged batch's) are written in
-    place, never rebound, while it lives (fits). replay() returns the
-    loss, a buffer of the graph that the next replay overwrites."""
+class _HeldT:
+    """The draws of a captured SDS body: each as `draws` gives it but the
+    timestep 'sds_t'. A graph keeps the bounds its capture saw, and the
+    curriculum lowers them every few epochs late in a run, so under a
+    capture the body draws 'sds_t' with those bounds (the generator
+    advances as the eager body's does) and reads the timestep from `t`,
+    which draw() fills before each replay: torch.randint over the current
+    bounds at the generator offset that the body reaches there, `offset`
+    past its start (`start`), as the eager warm-up measured it."""
 
-    def __init__(self, trainer: "Trainer", graph):
-        self.graph = graph
+    def __init__(self, draws, device):
+        self.draws, self.gen = draws, draws.generator
+        self.t = torch.zeros((1,), dtype=torch.long, device=device)
+        self.start = self.gen.get_offset()
+        self.offset = None
+
+    def uniform(self, name, shape):
+        return self.draws.uniform(name, shape)
+
+    def normal(self, name, shape):
+        return self.draws.normal(name, shape)
+
+    def randint(self, name, shape, low, high):
+        if name != "sds_t":
+            return self.draws.randint(name, shape, low, high)
+        if graphs.capturing():
+            self.draws.randint(name, shape, low, high)
+            return self.t
+        self.offset = self.gen.get_offset() - self.start
+        return self.draws.randint(name, shape, low, high)
+
+    def draw(self, low: int, high: int) -> None:
+        """`t` as the eager body would draw it over [low, high) in the
+        next replay; the generator's offset left as it was."""
+        at = self.gen.get_offset()
+        self.gen.set_offset(at + self.offset)
+        try:
+            self.t.copy_(self.draws.randint("sds_t", (1,), low, high))
+        finally:
+            self.gen.set_offset(at)
+
+
+def albedo_phase(curr: Curriculum, epoch) -> bool:
+    """Whether the SDS step shades with the albedo alone at `epoch`
+    (morpheus.py:864-887: the first albedo_iter_ratio of the epochs)."""
+    return bool(np.float32(epoch) / np.float32(curr.n_epochs)
+                <= np.float32(curr.albedo_iter_ratio))
+
+
+def active_levels(curr: Curriculum, epoch, num_levels: int) -> int | None:
+    """Host mirror of the float32 max_level schedule: the levels `epoch`
+    unlocks, rounded up to an even count (exact: the traced mask
+    zero-fills the extra level); None without progressive levels."""
+    if not curr.progressive_level:
+        return None
+    active = active_count(curr.max_level(epoch), num_levels)
+    return min(num_levels, active + (active & 1))
+
+
+def sds_key(curr: Curriculum, epoch, view, levels, remat: bool) -> tuple:
+    """The discrete values that the SDS body's host code branches on at
+    `epoch`: the view's (H, W), the active levels, the albedo phase, the
+    deform freeze and tpu.remat_virtual. The learning rate, the loss
+    weights, max_level and the timestep bounds are read on the device."""
+    return (tuple(view), levels, albedo_phase(curr, epoch),
+            curr.freeze_deform(epoch), bool(remat))
+
+
+class _StepGraph:
+    """A CUDA graph of Trainer._real_body or Trainer._virtual_body (a
+    graphs.Graph; `held`, the SDS body's _HeldT) and the state it was
+    captured against: the step field's spec, the occupancy state and the
+    reducer, whose tensors (and the staged batch's) are written in place,
+    never rebound, while it lives (fits). replay() returns the body's
+    output, buffers of the graph that the next replay overwrites."""
+
+    def __init__(self, trainer: "Trainer", graph, held=None):
+        self.graph, self.held = graph, held
         self.spec, self.occ = trainer.step_field.spec, trainer.occ
         self.red = trainer.dp
 
@@ -144,7 +224,7 @@ class _StepGraph:
         return (self.spec == trainer.step_field.spec
                 and self.occ is trainer.occ and self.red is trainer.dp)
 
-    def replay(self) -> torch.Tensor:
+    def replay(self):
         return self.graph.replay()
 
 
@@ -236,6 +316,9 @@ class Trainer:
         # "pool_mb", "launches", "all_reduces", "all_reduce_bytes",
         # "phases", "nested", "device_nodes"}
         self.captures: list = []
+        # the same of each SDS capture (_sds_capture), kept apart: a reader
+        # of `captures` reads the real step's graphs
+        self.sds_captures: list = []
         trace.allocate(SAMPLE_STREAMS, self.device)
         self.global_step = 0
         # optimizer steps of the epoch loop, real and virtual, counted on
@@ -267,9 +350,11 @@ class Trainer:
         # says whether any was added since the last real step
         self.pending = [torch.zeros_like(p) for p in self.params]
         self._pending_live = False
-        # graphs of the step, by active-level count: they hold the
-        # addresses of the state just replaced
+        # graphs of the real step, by active-level count, and of the SDS
+        # step, by _sds_key: they hold the addresses of the state just
+        # replaced
         self._graphs: dict = {}
+        self._sds_graphs: dict = {}
 
     def load_params(self, state: dict):
         """Load parameters by name (see convert.params_from_jax); resets the
@@ -281,14 +366,8 @@ class Trainer:
     # ---- curriculum ----
 
     def _active_levels(self) -> int | None:
-        """Host mirror of the float32 max_level schedule: the levels this
-        epoch unlocks, rounded up to an even count (exact: the traced mask
-        zero-fills the extra level)."""
-        if not self.curr.progressive_level:
-            return None
-        L = self.spec.grid.num_levels
-        active = active_count(self.curr.max_level(self.epoch), L)
-        return min(L, active + (active & 1))
+        """The levels this epoch unlocks (active_levels)."""
+        return active_levels(self.curr, self.epoch, self.spec.grid.num_levels)
 
     def _set_levels(self, active_levels):
         spec = self.spec
@@ -312,6 +391,7 @@ class Trainer:
         self.field.spec = self.spec
         self._set_levels(self._active_levels())
         self._graphs.clear()
+        self._sds_graphs.clear()
 
     # ---- occupancy ----
 
@@ -590,7 +670,8 @@ class Trainer:
                 self.dataset, self.config, scale, self.device)
         return self._samplers[scale]
 
-    def _virtual_loss(self, occ, draws, epoch, max_level, sampler):
+    def _virtual_loss(self, occ, draws, epoch, max_level, sampler,
+                      weights=None):
         """Virtual-view SDS loss of a random view of `sampler` (reference
         train_step(real_view=False), morpheus.py:1147-1236)."""
         if self.curr.progressive_view:
@@ -599,15 +680,17 @@ class Trainer:
         else:
             batch = sampler.sample(draws=draws)
         return self.virtual_loss_from_batch(occ, draws, epoch, max_level,
-                                            batch, sampler.H, sampler.W)
+                                            batch, sampler.H, sampler.W,
+                                            weights)
 
     def virtual_loss_from_batch(self, occ, draws, epoch, max_level, batch,
-                                H, W):
+                                H, W, weights=None):
         """SDS loss of one explicit virtual view (H*W rays and the view's
         offsets from its frame), (loss, out) (get_virtual_view_loss,
         morpheus.py:1044-1088). Draws: 'shade', 'ambient', 'bg_virtual',
         'bg_select' (with a background net), the render's, 'kf_pick', and
-        sds_loss's."""
+        sds_loss's. weights: the (ori, rgb, beta) loss weights (host floats
+        or device scalars), by default the curriculum's at `epoch`."""
         from ..guidance import zero123 as z123
         from ..guidance.resize import resize
         cfg = self.config
@@ -617,11 +700,9 @@ class Trainer:
 
         # shading (morpheus.py:864-887): albedo in the first epochs, then
         # textureless with probability textureless_ratio, else lambertian
-        albedo_phase = (np.float32(epoch) / np.float32(self.curr.n_epochs)
-                        <= np.float32(self.curr.albedo_iter_ratio))
         u = draws.uniform("shade", ())
         a = draws.uniform("ambient", ())
-        if albedo_phase:
+        if albedo_phase(self.curr, epoch):
             shading_id, ambient = SHADING_ALBEDO, 1.0
         else:
             shading_id = torch.where(
@@ -657,7 +738,7 @@ class Trainer:
                 rec = RecordedDraws(draws)
                 out = torch.utils.checkpoint.checkpoint(
                     lambda b, am: render(rec.start(), b, am), bg_color,
-                    ambient, use_reentrant=False)
+                    ambient, use_reentrant=False, preserve_rng_state=False)
             else:
                 out = render(draws, bg_color, ambient)
         trace.fill("sds", out["mask"])
@@ -704,7 +785,8 @@ class Trainer:
         if cfg["exp"]["save_guidance"]:
             out["sds_diag"] = dict(diag, pred_rgb=pred256.detach())
 
-        ori_w, rgb_w, beta_w = self.curr.loss_weights(epoch)
+        ori_w, rgb_w, beta_w = (self.curr.loss_weights(epoch)
+                                if weights is None else weights)
         loss = loss_sds + self._reg_loss(out, ori_w, beta_w)
         if tr["normal_smooth_2d"] > 0 and "normal_image" in out:
             ni = out["normal_image"].reshape(H, W, 3)
@@ -856,14 +938,47 @@ class Trainer:
         added to the carried gradients (trainer.py:625-672 of the JAX
         package). Under a process group each rank renders its own view
         (sharding.ViewDraws) and the loss and the gradients are the mean
-        over the views (sharding.py:142-238 of the JAX package)."""
+        over the views (sharding.py:142-238 of the JAX package).
+
+        After the occupancy refresh (eager, in place) the body
+        (_virtual_body) at `epoch`: where the real step replays a graph
+        (self.graphed) and there is no process group, a replay of the graph
+        of this step's key (_sds_replay), else the body eagerly (the CPU,
+        gloo and NCCL ranks, draws other than the trainer's own device
+        generator's, progressive_view's per-epoch view ranges).
+        Counts sds.calls (and a replay sds.replays). A replay's loss and
+        panel inputs are the graph's buffers, which the next replay
+        overwrites."""
+        trace.count("sds.calls")
         draws = self.draws
-        lr = self.curr.learning_rate(epoch)
-        max_level = self.curr.max_level(epoch)
         t_occ = draws.uniform("t_occ", ())
         self._refresh_occ(self.global_step, t_occ, draws)
-        loss, out = self._virtual_loss(self.occ, self.dp.view_draws(draws),
-                                       epoch, max_level, sampler)
+        self.scalars.set(epoch)
+        if self.graphed and not self.dp.active \
+                and isinstance(self.draws, Draws) \
+                and not self.curr.progressive_view:
+            out = self._sds_replay(epoch, sampler)
+        else:
+            out = self._virtual_body(epoch, sampler,
+                                     self.dp.view_draws(draws))
+        self._pending_live = not self.curr.freeze_deform(epoch)
+        self.global_step += 1
+        return out
+
+    def _virtual_body(self, epoch, sampler, draws) -> tuple:
+        """What an SDS step does after its occupancy refresh, and what a
+        graph of it holds: the view, its loss (_virtual_loss), the
+        gradients, their division by virtual_freq and non-finite check,
+        then the freeze's optimizer update (FREEZE_GROUPS at rate 0, the
+        carried gradients cleared) or the carry (added to self.pending in
+        place). The learning rate, max_level and the loss weights are
+        self.scalars'; the albedo phase, the freeze and the timestep bounds
+        come from `epoch`. (loss, the panels' inputs or {})."""
+        if graphs.capturing():
+            trace.count("sds.replays")
+        s = self.scalars
+        loss, out = self._virtual_loss(self.occ, draws, epoch, s.max_level,
+                                       sampler, s.loss_weights)
         with trace.span("sds.grads"):
             grads, loss = self.dp.reduce_grads(self._grads(loss), loss,
                                                mean=True)
@@ -878,15 +993,60 @@ class Trainer:
             # steps the optimizer nor enters the carry
             grads = [torch.where(ok, g, 0.0) for g in grads]
             if self.curr.freeze_deform(epoch):
-                self.optim.update(grads, lr, frozen=optim.FREEZE_GROUPS,
+                self.optim.update(grads, s.lr, frozen=optim.FREEZE_GROUPS,
                                   ok=ok)
                 torch._foreach_zero_(self.pending)
-                self._pending_live = False
             else:
                 torch._foreach_add_(self.pending, grads)
-                self._pending_live = True
-        self.global_step += 1
         return loss.detach(), out.get("sds_diag", {})
+
+    def _sds_key(self, epoch, sampler) -> tuple:
+        """sds_key at `epoch` with the state a graph of the body reads
+        beside it: the sampler (its rays) and the backend settings."""
+        from ..guidance.unet_graph import settings
+        return (sds_key(self.curr, epoch, (sampler.H, sampler.W),
+                        self._active_levels(),
+                        self.config["tpu"].get("remat_virtual", True)),
+                sampler, settings())
+
+    def _sds_replay(self, epoch, sampler) -> tuple:
+        """The SDS body by the graph of this step's key, its timestep drawn
+        first over this epoch's bounds (_HeldT.draw). A graph of another
+        key, or one captured against another spec or occupancy state, is
+        dropped first; a missing one is captured after the warm-up step,
+        whose output is then returned."""
+        key = self._sds_key(epoch, sampler)
+        for k in [k for k, g in self._sds_graphs.items()
+                  if k != key or not g.fits(self)]:
+            del self._sds_graphs[k]
+        graph = self._sds_graphs.get(key)
+        if graph is None:
+            out, self._sds_graphs[key] = self._sds_capture(epoch, sampler,
+                                                           key[0])
+            return out
+        min_step, max_step = self.curr.sds_steps(epoch)
+        graph.held.draw(min_step, max_step + 1)
+        return graph.replay()
+
+    def _sds_capture(self, epoch, sampler, key: tuple) -> tuple:
+        """(the warm-up step's output, its _StepGraph): graphs.capture of
+        the SDS body with the draws' generator registered, its timestep
+        held (_HeldT). Its line in self.sds_captures gives the key
+        (sds_key's), the timestep's generator offset, and what the capture
+        measured. A failed capture raises."""
+        held = _HeldT(self.draws, self.device)
+        out, g = graphs.capture(
+            lambda: self._virtual_body(epoch, sampler, held), self.device,
+            (self.draws.generator,))
+        view, levels, albedo, freeze, remat = key
+        self.sds_captures.append({
+            "view": list(view), "active_levels": levels, "albedo": albedo,
+            "freeze": freeze, "remat": remat, "t_offset": held.offset,
+            "warmup_s": g.warmup_s, "capture_s": g.capture_s,
+            "pool_mb": g.pool_mb, "launches": kernels.launches(g.counts),
+            "phases": g.phases, "nested": g.nested,
+            "device_nodes": g.device_nodes})
+        return out, _StepGraph(self, g, held)
 
     def train_one_epoch(self, n_iters: int | None = None) -> float:
         """n_iters x (virtual_freq virtual slots + real_freq real steps),
@@ -969,8 +1129,9 @@ class Trainer:
     def load_state_dict(self, state: dict) -> None:
         """Restore a state_dict() (or convert.load_jax_ckpt's dict, which
         has no draws state) in place: every tensor keeps its address. The
-        graphs of the step are dropped (the draws' state is replaced)."""
+        graphs of the steps are dropped (the draws' state is replaced)."""
         self._graphs.clear()
+        self._sds_graphs.clear()
         if state["optim"]["name"] != self.optim.name:
             raise ValueError(
                 f"a checkpoint of optimizer {state['optim']['name']!r} into "

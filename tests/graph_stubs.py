@@ -2,7 +2,8 @@
 morpheus_tpu_torch/graphs.py's capture(): stub_capture(monkeypatch, made)
 puts in its place a capture that runs the body once, as the warm-up does,
 returns the body's output and a StubGraph (appended to `made`), whose
-replay runs the body again."""
+replay runs the body again, with graphs.capturing() reading True, as the
+body that a card captured read it."""
 from morpheus_tpu_torch import graphs
 
 
@@ -17,7 +18,12 @@ class StubGraph(graphs.Graph):
 
     def replay(self):
         self.replays += 1
-        return self.body()
+        capturing = graphs.capturing
+        graphs.capturing = lambda: True
+        try:
+            return self.body()
+        finally:
+            graphs.capturing = capturing
 
 
 def stub_capture(monkeypatch, made: list) -> None:

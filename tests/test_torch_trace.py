@@ -153,6 +153,25 @@ def test_node_map_of_fake_capture():
     assert trace.span("a") is trace.span("b")
 
 
+def test_node_map_closes_a_span_left_by_an_exception():
+    """A span that an exception leaves (a non-reentrant checkpoint stops
+    its recomputation early by raising) ends where the exception passed
+    it, and the spans around it keep their own ends."""
+    nodes = FakeNodes()
+    with trace.capture_phases(trace.NodeMap(nodes)) as m:
+        with trace.span("a"):
+            nodes.n = 3
+            with pytest.raises(ValueError):
+                with trace.span("inner"):
+                    nodes.n = 4
+                    raise ValueError("stop")
+            nodes.n = 6
+        with trace.span("b"):
+            nodes.n = 8
+    assert m.phases == [["a", 0, 6], ["b", 6, 8]]
+    assert m.nested == [["inner", 3, 4]]
+
+
 class OpCount(TorchDispatchMode):
     """Counts the operators dispatched: a stand-in for the nodes a capture
     would add."""
@@ -183,6 +202,30 @@ def test_node_map_of_the_real_body():
     assert a0 < a1 == b0 < b1 == c0 < c1 <= m.device_nodes
     [(name, n0, n1)] = m.nested
     assert name == "render.band" and a0 < n0 < n1 < a1
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_node_map_of_the_sds_body(remat):
+    """The SDS step's body (the SDS graph's) under a fake capture: its
+    five phases in order, each closed and holding work, within the body's
+    count; under remat_virtual too, where the render's recomputations
+    (one inside the forward's band term, one in the backward) open their
+    band spans nested inside render and backward."""
+    tr = sds_trainer(remat)
+    tr.scalars.set(tr.epoch)
+    sampler = tr.virtual_sampler(tr._novel_view_scale())
+    ops = OpCount()
+    with ops, trace.capture_phases(trace.NodeMap(lambda: ops.n)) as m:
+        tr._virtual_body(tr.epoch, sampler, tr.draws)
+    assert [p[0] for p in m.phases] == list(SDS_SPANS)
+    ends = [x for _, a, b in m.phases for x in (a, b)]
+    assert ends == sorted(ends) and ends[-1] <= m.device_nodes
+    assert all(a < b for _, a, b in m.phases)
+    bands = [n for n in m.nested if n[0] == "render.band"]
+    assert bands and all(a < b for _, a, b in bands)
+    render, grads = m.phases[0], m.phases[3]
+    assert all(render[1] < a < b <= render[2] or grads[1] < a < b <= grads[2]
+               for _, a, b in bands)
 
 
 def test_a_failing_node_count_loses_the_map_not_the_body():
