@@ -4,7 +4,8 @@ decides `correct`.
 
 The window drives Trainer.train_one_epoch of morpheus_tpu_torch, the epoch
 loop of `python -m morpheus_tpu_torch`: each real step a replay of the
-step's CUDA graph (tpu.chain_steps), each SDS slot the eager virtual step.
+step's CUDA graph (tpu.chain_steps), each SDS slot a replay of the SDS
+step's graph (after the occupancy refresh, eager on a due step).
 Set-up builds the trainer from the seed's inputs, puts it at the cell's
 epoch and step, and runs one whole epoch untimed, whose first steps are
 the ones compared with the reference (compare.CHECKED_STEPS); the window
@@ -31,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from . import compare, inputs
+from . import compare, inputs, program_spans
 from .trace import Trace, traced
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -39,11 +40,12 @@ ROOT = os.path.dirname(HERE)
 # module names, compared whole by their top-level part, that a run's process
 # may not hold: the JAX stack and the JAX package the port was made from
 FORBIDDEN = ("jax", "jaxlib", "flax", "morpheus_tpu")
-# the benchmark's spans, innermost first: Zero123's sds_loss inside the SDS
-# virtual step; the chained real step
-SDS_SPAN, VIRTUAL_SPAN, REAL_SPAN = "sds_loss", "virtual_step", \
-    "chained_real_step"
-SPANS = (SDS_SPAN, VIRTUAL_SPAN, REAL_SPAN)
+# the benchmark's spans around the trainer's step methods, the SDS virtual
+# step and the chained real step: the spans in which the graph readers
+# find each graph's replays
+VIRTUAL_SPAN, REAL_SPAN = (program_spans.GRAPHS[g][0] for g in ("sds",
+                                                                "real"))
+SPANS = (VIRTUAL_SPAN, REAL_SPAN)
 WINDOW_SPAN = "bench.window"
 
 
@@ -150,6 +152,22 @@ def _span(fn, name):
     return wrapped
 
 
+def guided(cfg: dict) -> bool:
+    """Whether the config's virtual slots run SDS steps with guidance."""
+    return bool(cfg["guidance"]["model"]) and bool(
+        cfg["train"]["virtual_freq"])
+
+
+def guidance_inputs(cell, guided: bool, seed, device) -> tuple:
+    """(the Zero123 ldm state dict made from the seed, its spec's fields),
+    or (None, None) without guidance."""
+    if not guided:
+        return None, None
+    zspec = inputs.zero123_spec(cell)
+    return (inputs.zero123_state(zspec, seed, device),
+            dataclasses.asdict(zspec))
+
+
 def build_program(cell, cfg, scene, fstate, zstate, seed, device,
                   zspec_fields=None):
     """The port's trainer at the cell's point: its guidance from the ldm
@@ -187,8 +205,8 @@ def run_program(cell: dict, cfg: dict, seed: int, seconds: float | None,
     """Set-up, the window and, with `trace`, the traced epoch, on the port;
     the run's record (the trainer freed). seconds None stops after set-up,
     whose epoch setup_iters cuts to that many iterations."""
-    guided = bool(cfg["guidance"]["model"]) and cfg["train"]["virtual_freq"]
-    kinds = epoch_kinds(cfg, guided)
+    with_guidance = guided(cfg)
+    kinds = epoch_kinds(cfg, with_guidance)
     parts, t = {"start": time.perf_counter() - t0}, time.perf_counter()
     if torch.device(device).type == "cuda":
         from morpheus_tpu_torch import kernels
@@ -197,11 +215,7 @@ def run_program(cell: dict, cfg: dict, seed: int, seconds: float | None,
     scene = inputs.make_scene(cfg)
     bound = float(np.float32(1.01))
     fstate = inputs.field_state(cfg, scene["num_frames"], bound, seed, device)
-    zstate = zfields = None
-    if guided:
-        zspec = inputs.zero123_spec(cell)
-        zfields = dataclasses.asdict(zspec)
-        zstate = inputs.zero123_state(zspec, seed, device)
+    zstate, zfields = guidance_inputs(cell, with_guidance, seed, device)
     parts["inputs"], t = time.perf_counter() - t, time.perf_counter()
     trainer = build_program(cell, cfg, scene, fstate, zstate, seed, device,
                             zfields)
@@ -215,8 +229,8 @@ def run_program(cell: dict, cfg: dict, seed: int, seconds: float | None,
         raise AssertionError("set-up's epoch ran fewer steps than checked")
     setup_peak = (torch.cuda.max_memory_allocated(device)
                   if torch.device(device).type == "cuda" else 0)
-    rec = {"check": checked.record(), "kinds": kinds,
-           "captures": list(trainer.captures), "setup_parts": parts}
+    rec = {"check": checked.record(), "kinds": kinds, "setup_parts": parts}
+    capture_lines(rec, trainer)
     if seconds is None:
         del trainer
         gc.collect()
@@ -250,6 +264,7 @@ def run_program(cell: dict, cfg: dict, seed: int, seconds: float | None,
 
     if trace:
         rec["trace"] = traced_epoch(trainer, device)
+    capture_lines(rec, trainer)
     del trainer
     gc.collect()
     if torch.device(device).type == "cuda":
@@ -257,15 +272,19 @@ def run_program(cell: dict, cfg: dict, seed: int, seconds: float | None,
     return rec
 
 
+def capture_lines(rec: dict, trainer) -> None:
+    """The trainer's capture lines of its real step's graphs (captures)
+    and of its SDS step's (sds_captures), each with the graph's node map,
+    as they stand: set-up makes them, and the held epoch's graphs stay."""
+    rec["captures"] = list(trainer.captures)
+    rec["sds_captures"] = list(trainer.sds_captures)
+
+
 def traced_epoch(trainer, device) -> Trace:
     """One more epoch under torch.profiler, with the benchmark's spans
-    around the trainer's two step methods and the guidance's sds_loss
-    (looked up on its module, where the trainer finds it)."""
-    from morpheus_tpu_torch.guidance import zero123 as z123
+    around the trainer's two step methods."""
     trainer.chained_real_step = _span(trainer.chained_real_step, REAL_SPAN)
     trainer.virtual_step = _span(trainer.virtual_step, VIRTUAL_SPAN)
-    sds = z123.sds_loss
-    z123.sds_loss = _span(sds, SDS_SPAN)
     try:
         sync(device)
         with traced(torch.device(device).type == "cuda") as box:
@@ -273,7 +292,6 @@ def traced_epoch(trainer, device) -> Trace:
                 trainer.train_one_epoch()
                 sync(device)
     finally:
-        z123.sds_loss = sds
         del trainer.chained_real_step, trainer.virtual_step
     return Trace(box["prof"], WINDOW_SPAN, SPANS)
 
@@ -375,6 +393,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     set_tf32(False)
     rec = run_program(cell, cfg, seed, seconds, trace, device, t0)
     log("captures:", json.dumps(rec["captures"]))
+    log("sds captures:", json.dumps(rec["sds_captures"]))
     log("setup parts, s:", json.dumps(rec["setup_parts"]))
     log("window epochs, s:", json.dumps(rec["epoch_s"]))
     n = len(rec["check"]["kinds"])
@@ -405,11 +424,24 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
               "device": dev}
     if trace:
         tr = rec["trace"]
+        log("graph replays kept, of calls:", json.dumps(replays_kept(rec)))
         dev["busy_s"], dev["window_s"] = tr.busy_s, tr.window_s
         result["breakdown"] = {"device_ops": tr.device_ops(),
                                "idle_gaps": tr.idle_gaps(SPANS)}
     result["compared"] = compared
     return result
+
+
+def replays_kept(rec: dict) -> dict:
+    """{graph: [replays kept, calls of its span]} in the traced epoch, of
+    each step graph that the graph_ms readers split (0 kept where none can
+    be read: under half matched, or no node map)."""
+    tr, out = rec["trace"], {}
+    for graph, (span, key) in program_spans.GRAPHS.items():
+        got = program_spans.graph_replays(tr, span, rec.get(key))
+        out[graph] = [0 if got is None else len(got[1]),
+                      tr.span_calls(span)]
+    return out
 
 
 def e2e_value(name: str, rec: dict) -> float:

@@ -1,8 +1,10 @@
-"""Device busy ms per SDS step of the band term (renderer.py render_rays,
-span render.band, eager in the SDS step: the traced epoch's replays open
-no span, so each call is an SDS step's)."""
+"""Device busy ms per replay of the band term inside the SDS step's CUDA
+graph (renderer.py render_rays, span render.band, nested in sds.render's
+node range; its first range, the forward's): each replay's records in the
+span virtual_step, split by the node map of the trainer's sds_captures
+line (benchmark/program_spans.py graph_ms)."""
+from benchmark import program_spans
 
 
 def read(run):
-    tr = run.trace
-    return None if tr is None else tr.span_device_ms("render.band")
+    return program_spans.graph_ms(run, "sds", "render.band")

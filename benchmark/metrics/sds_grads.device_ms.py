@@ -1,8 +1,10 @@
-"""Device busy ms per call of the program's sds.grads span (train/
-trainer.py virtual_step: the whole SDS backward, launched by autograd's
-thread inside it: render, recomputations, the VAE encoder's backward)."""
+"""Device busy ms per replay of the SDS step graph's sds.grads phase
+(train/trainer.py _virtual_body: the whole SDS backward, render,
+recomputations and the VAE encoder's backward): each replay's records in
+the span virtual_step, split by the node map of the trainer's
+sds_captures line (benchmark/program_spans.py graph_ms)."""
+from benchmark import program_spans
 
 
 def read(run):
-    tr = run.trace
-    return None if tr is None else tr.span_device_ms("sds.grads")
+    return program_spans.graph_ms(run, "sds", "sds.grads")

@@ -1,9 +1,11 @@
-"""Device busy ms per call of the program's sds.render span (train/
-trainer.py virtual_loss_from_batch: the view's march, compaction, field
+"""Device busy ms per replay of the SDS step graph's sds.render phase
+(train/trainer.py _virtual_loss: the view's march, compaction, field
 forward, composite and regularisers; under remat_virtual its first pass
-alone)."""
+alone): each replay's records in the span virtual_step, split by the node
+map of the trainer's sds_captures line (benchmark/program_spans.py
+graph_ms)."""
+from benchmark import program_spans
 
 
 def read(run):
-    tr = run.trace
-    return None if tr is None else tr.span_device_ms("sds.render")
+    return program_spans.graph_ms(run, "sds", "sds.render")

@@ -1,8 +1,10 @@
-"""Device busy ms per call of the program's guidance.vae_encode span
-(guidance/zero123.py sds_loss: the VAE encoder's forward; its backward
-runs in sds.grads)."""
+"""Device busy ms per replay of the SDS step graph's guidance.vae_encode
+phase (guidance/zero123.py sds_loss: the VAE encoder's forward; its
+backward lies in sds.grads): each replay's records in the span
+virtual_step, split by the node map of the trainer's sds_captures line
+(benchmark/program_spans.py graph_ms)."""
+from benchmark import program_spans
 
 
 def read(run):
-    tr = run.trace
-    return None if tr is None else tr.span_device_ms("guidance.vae_encode")
+    return program_spans.graph_ms(run, "sds", "guidance.vae_encode")

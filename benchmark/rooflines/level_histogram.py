@@ -1,24 +1,31 @@
 """Bytes that one real step's level_histogram launches need, worked out
 from the config and the cell's epoch; a graph replay shows no shapes.
 
-A real step differentiates three encodes of its sites: the render's
-samples (sample_budget a ray) with the perturbed-smoothness sites
-(smooth_budget a ray) when merge_smooth, the surface band's sites
-(band_budget a ray, the SDF table alone) and, with surf_sdf_weight, one
-surface point a ray. C is 4 with the colour table (the SDF's 2 and the
-colour's 2), else 2. Under hist_rows each encode launches the kernel
+A real step differentiates the encodes of its sites. Of a stream of S
+samples (sample_budget a ray, or every one of the max_samples_per_ray
+slots without a budget): the samples with the perturbed-smoothness sites
+(smooth_budget a ray, or one a sample without a budget) when
+merge_smooth, else the two apart; the surface band's sites (the SDF table
+alone): under band_reuse with a band_budget one encode of band_budget a
+ray, else the ladder's two normals (n1 and n2), each an encode of
+band_budget a ray or, without a budget, of every rung (trunc*100+1 a ray);
+with surf_sdf_weight, one surface point a ray. A budget that holds the
+whole set keeps it whole. C is 4 with the colour table (the SDF's 2 and
+the colour's 2), else 2. Under hist_rows each encode launches the kernel
 twice:
 
 - the packed dense prefix, the first levels whose whole lattice fits
   their table: one index a site and level, and one payload row of the
   2^3 corners' C f32 cotangents side by side, into a table of those
   levels' rows at that width (2^3 * C);
-- the other active levels: one index a site, corner and level, and one
+- the other launched levels: one index a site, corner and level, and one
   payload row of C f32, into the (rows, C) table, of which the kernel
   writes the launched levels' rows.
 
-Other routes launch the second form for every active level. Counted once
-each: the int32 indices and the f32 payload read (a bf16 payload is
+Other routes launch the second form for every launched level. The
+launched levels are the active ones rounded up to an even count, as the
+port's step graph keys them (its mask zero-fills the extra level). Counted
+once each: the int32 indices and the f32 payload read (a bf16 payload is
 rounded from f32 as the kernel loads it), and the launched levels' rows
 written in f32."""
 from __future__ import annotations
@@ -37,16 +44,33 @@ def active_levels(cfg: dict, epoch: int) -> int:
     return active_count(curr.max_level(epoch), L)
 
 
+def launched_levels(cfg: dict, epoch: int) -> int:
+    """The active levels rounded up to an even count, at most all."""
+    a = active_levels(cfg, epoch)
+    return min(int(cfg["model"].get("grid_num_levels", 16)), a + (a & 1))
+
+
+def _within(budget: int, whole: int) -> int:
+    """The sites a budget keeps of `whole` (all without a budget)."""
+    return min(budget, whole) if budget else whole
+
+
 def encodes(cfg: dict) -> list:
     """(sites, channels) of each differentiated encode of a real step."""
     tr, tpu = cfg["train"], cfg["tpu"]
     N = int(tr["real_ray_num"])
     C = 4 if cfg["model"]["color_grid"] else 2
-    samples = int(tpu["sample_budget"]) * N
-    smooth = int(tpu["smooth_budget"]) * N
+    samples = _within(int(tpu["sample_budget"]) * N,
+                      int(tpu["max_samples_per_ray"]) * N)
+    smooth = _within(int(tpu["smooth_budget"]) * N, samples)
     out = ([(samples + smooth, C)] if tpu.get("merge_smooth", True)
            else [(samples, C), (smooth, C)])
-    out.append((int(tpu["band_budget"]) * N, 2))
+    band = int(tpu["band_budget"]) * N
+    if tpu.get("band_reuse", True) and band:
+        out.append((_within(band, samples), 2))
+    else:
+        rungs = int(tr["trunc"] * 100 + 1) * N
+        out += [(_within(band, rungs), 2)] * 2
     if tr["surf_sdf_weight"] > 0:
         out.append((N, C))
     return out
@@ -74,7 +98,7 @@ def launches(cfg: dict, cell: dict) -> list:
     """Each launch of one real step: {"idx": (levels, n) int32, "vals":
     (levels * n, width) f32, "starts": each level's first row, "n_rows":
     the output table's rows, "written": the rows the launch writes}."""
-    L = active_levels(cfg, cell["epoch"])
+    L = launched_levels(cfg, cell["epoch"])
     k = packed_levels(cfg, L)
     offs = _grid(cfg).offsets
     out = []

@@ -8,7 +8,7 @@ import dataclasses
 from benchmark import inputs
 
 ALL_METRICS = ("idle_share", "peak_mem_gib", "mfu", "real_step.device_ms",
-               "sds_step.device_ms", "guidance.device_ms",
+               "sds_step.device_ms", "sds_render.device_ms",
                "level_histogram_roofline")
 
 

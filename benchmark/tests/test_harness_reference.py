@@ -30,7 +30,7 @@ def test_port_matches_reference(name):
     # a CPU run is never written under a device metric
     assert not set(r["metrics"]) & {"idle_share", "real_step.device_ms",
                                     "sds_step.device_ms",
-                                    "guidance.device_ms", "mfu",
+                                    "sds_render.device_ms", "mfu",
                                     "level_histogram_roofline",
                                     "peak_mem_gib"}
 

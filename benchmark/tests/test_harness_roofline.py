@@ -44,17 +44,14 @@ def test_by_hand():
     assert roof.packed_levels(sds_cfg, 10) == 0
 
 
-@pytest.mark.parametrize("rays", [16, 48])
-def test_launches_match_the_ports_calls(rays):
-    """Every launch's index, payload, level starts and table rows as the
-    port makes them in a real step, and the rows the count writes lie in
-    the launch's levels."""
+def ports_calls(cell, cfg) -> list:
+    """The level_histogram calls of one chained real step of the port at
+    the cell's point, on the CPU."""
     from morpheus_tpu_torch.data.dataset import DeformDataset
     from morpheus_tpu_torch.ops import hashgrid, hist
     from morpheus_tpu_torch.train.trainer import Trainer
 
     from benchmark import inputs
-    cell, cfg = _cfg(rays)
     calls = []
     orig = hist.level_histogram
 
@@ -74,11 +71,47 @@ def test_launches_match_the_ports_calls(rays):
         t.chained_real_step(t.epoch)
     finally:
         hashgrid.level_histogram = orig
+    return calls
+
+
+def launch_key(x):
+    return x["idx"], x["vals"], x["starts"], x["n_rows"]
+
+
+@pytest.mark.parametrize("rays", [16, 48])
+def test_launches_match_the_ports_calls(rays):
+    """Every launch's index, payload, level starts and table rows as the
+    port makes them in a real step, and the rows the count writes lie in
+    the launch's levels."""
+    cell, cfg = _cfg(rays)
+    calls = ports_calls(cell, cfg)
     predicted = roof.launches(cfg, cell)
-    key = lambda x: (x["idx"], x["vals"], x["starts"], x["n_rows"])  # noqa
-    assert sorted(map(key, calls)) == sorted(map(key, predicted))
+    assert sorted(map(launch_key, calls)) == sorted(map(launch_key,
+                                                         predicted))
     offs = roof._grid(cfg).offsets
     for x in predicted:
         first = offs.index(x["starts"][0])
         assert x["written"] == offs[first + x["idx"][0]] - x["starts"][0]
         assert x["starts"][0] + x["written"] <= x["n_rows"]
+
+
+def test_exact_step_encodes_every_site():
+    """Without budgets (snoopy_exact, the exact tiny harness's cell): every
+    marched slot with a smoothness site at each, the band ladder's two
+    normals at every rung, one surface point a ray; the launches as the
+    port makes them, the active levels (11 at epoch 700) rounded up to the
+    12 that the port's graph launches."""
+    from harness_exact_tiny import exact_tiny
+    cell, cfg = exact_tiny()
+    N, K = cfg["train"]["real_ray_num"], cfg["tpu"]["max_samples_per_ray"]
+    assert cfg["tpu"]["sample_budget"] == cfg["tpu"]["band_budget"] == 0
+    assert roof.encodes(cfg) == [(2 * K * N, 4), (11 * N, 2), (11 * N, 2),
+                                 (N, 4)]
+    assert roof.active_levels(cfg, cell["epoch"]) == 11
+    assert roof.launched_levels(cfg, cell["epoch"]) == 12
+    calls = ports_calls(cell, cfg)
+    sites = sorted((c["idx"][1] // 8, c["vals"][1]) for c in calls
+                   if c["idx"][0] == 12 - roof.packed_levels(cfg, 12))
+    assert sites == sorted(roof.encodes(cfg))
+    assert sorted(map(launch_key, calls)) == sorted(
+        map(launch_key, roof.launches(cfg, cell)))
