@@ -294,10 +294,10 @@ def check(name: str, seed: int, replays: int) -> tuple:
     fstate = inputs.field_state(cfg, scene["num_frames"],
                                 float(np.float32(1.01)), seed, "cuda")
     guided = harness.guided(cfg)
-    zstate, zfields = harness.guidance_inputs(cell, guided, seed, "cuda")
-    tr = harness.build_program(cell, cfg, scene, fstate, zstate, seed, "cuda",
-                               zfields)
-    del fstate, zstate
+    gstate, gfields = harness.guidance_inputs(cell, cfg, seed, "cuda")
+    tr = harness.build_program(cell, cfg, scene, fstate, gstate, seed, "cuda",
+                               gfields)
+    del fstate, gstate
     tr._set_levels(tr._active_levels())
     card = harness.card_line("cuda")
 

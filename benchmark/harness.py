@@ -12,10 +12,11 @@ the ones compared with the reference (compare.CHECKED_STEPS); the window
 then calls train_one_epoch back to back, the epoch held, until `seconds`
 have passed.
 
-Everything that belongs to a cell, a configuration or a per-layer metric
-is found by name: benchmark/workloads/<cell>.json, benchmark/configs/
-<config>.json, benchmark/metrics/<metric>.py (a read(run) function) and
-the manifest, BENCHMARK.json.
+Everything that belongs to a cell, a configuration, its SDS prior or a
+per-layer metric is found by name: benchmark/workloads/<cell>.json,
+benchmark/configs/<config>.json, benchmark/guidance/<kind>.py (the prior
+that guidance.model[0] names: inputs.load_prior), benchmark/metrics/
+<metric>.py (a read(run) function) and the manifest, BENCHMARK.json.
 """
 from __future__ import annotations
 
@@ -158,29 +159,33 @@ def guided(cfg: dict) -> bool:
         cfg["train"]["virtual_freq"])
 
 
-def guidance_inputs(cell, guided: bool, seed, device) -> tuple:
-    """(the Zero123 ldm state dict made from the seed, its spec's fields),
-    or (None, None) without guidance."""
-    if not guided:
+def prior(cfg: dict):
+    """The configuration's SDS prior (inputs.load_prior), or None without
+    guidance; a missing prior's file raises FileNotFoundError."""
+    return inputs.load_prior(inputs.prior_kind(cfg)) if guided(cfg) else None
+
+
+def guidance_inputs(cell, cfg, seed, device) -> tuple:
+    """(the SDS prior's weights made from the seed, its spec's fields), or
+    (None, None) without guidance."""
+    if not guided(cfg):
         return None, None
-    zspec = inputs.zero123_spec(cell)
-    return (inputs.zero123_state(zspec, seed, device),
-            dataclasses.asdict(zspec))
+    kind = inputs.prior_kind(cfg)
+    spec = inputs.prior_spec(cell, kind)
+    return (inputs.prior_state(kind, spec, seed, device),
+            dataclasses.asdict(spec))
 
 
-def build_program(cell, cfg, scene, fstate, zstate, seed, device,
-                  zspec_fields=None):
-    """The port's trainer at the cell's point: its guidance from the ldm
-    state dict (guidance.checkpoint.from_state_dict), its field's
+def build_program(cell, cfg, scene, fstate, gstate, seed, device,
+                  spec_fields=None):
+    """The port's trainer at the cell's point: its guidance from the
+    prior's weights `gstate` (the prior's program()), its field's
     parameters loaded by name."""
     from morpheus_tpu_torch.data.dataset import DeformDataset
     from morpheus_tpu_torch.train.trainer import Trainer
     guidance = None
-    if zstate is not None:
-        from morpheus_tpu_torch.guidance.checkpoint import from_state_dict
-        from morpheus_tpu_torch.guidance.zero123 import Zero123Spec
-        guidance = from_state_dict(zstate, Zero123Spec(**zspec_fields),
-                                   device)
+    if gstate is not None:
+        guidance = prior(cfg).program(gstate, spec_fields, device)
     trainer = Trainer(cfg, DeformDataset(cfg, scene=scene), device=device,
                       seed=inputs.sub_seed(seed, 3), guidance=guidance)
     trainer.load_params(fstate)
@@ -215,11 +220,11 @@ def run_program(cell: dict, cfg: dict, seed: int, seconds: float | None,
     scene = inputs.make_scene(cfg)
     bound = float(np.float32(1.01))
     fstate = inputs.field_state(cfg, scene["num_frames"], bound, seed, device)
-    zstate, zfields = guidance_inputs(cell, with_guidance, seed, device)
+    gstate, gfields = guidance_inputs(cell, cfg, seed, device)
     parts["inputs"], t = time.perf_counter() - t, time.perf_counter()
-    trainer = build_program(cell, cfg, scene, fstate, zstate, seed, device,
-                            zfields)
-    del zstate, fstate
+    trainer = build_program(cell, cfg, scene, fstate, gstate, seed, device,
+                            gfields)
+    del gstate, fstate
     parts["trainer"], t = time.perf_counter() - t, time.perf_counter()
     checked = Checked(trainer, compare.CHECKED_STEPS)
     trainer.train_one_epoch(setup_iters)      # set-up: capture, warm-up
@@ -311,14 +316,14 @@ def run_reference(cell: dict, cfg: dict, seed: int, device,
         bound = float(np.float32(1.01))
         fstate = inputs.field_state(cfg, scene["num_frames"], bound, seed,
                                     device)
-        g = None
+        g = p = None
         if "virtual" in kinds:
-            g = reference_guidance(cell, seed, device)
+            p, g = reference_guidance(cell, cfg, seed, device)
         ref = ReferenceTrainer(cfg, scene, fstate, inputs.sub_seed(seed, 3),
                                cell["epoch"], cell["step"], device,
-                               guidance=g)
+                               guidance=g, prior=p)
         if g is not None:
-            g.clip.to("cpu")
+            p.release(g)
         out = {"kinds": [], "losses": [], "counts": [], "mu": [],
                "flops": []}
         for kind in kinds:
@@ -339,18 +344,13 @@ def run_reference(cell: dict, cfg: dict, seed: int, device,
         set_tf32(tf32)
 
 
-def reference_guidance(cell: dict, seed: int, device):
-    """The reference's Zero123 from the same ldm state dict, the UNet cast
-    to the compute type that the configuration states."""
-    from .reference.guidance.zero123 import Zero123Guidance, cast_for_compute
-    spec = inputs.zero123_spec(cell)
-    state = inputs.zero123_state(spec, seed, device)
-    with torch.device("meta"):
-        g = Zero123Guidance(spec)
-    g.load_state_dict(state, strict=True, assign=True)
-    g.alphas_cumprod = torch.as_tensor(spec.diffusion.alphas_cumprod,
-                                       dtype=torch.float32, device=device)
-    return cast_for_compute(g.requires_grad_(False))
+def reference_guidance(cell: dict, cfg: dict, seed: int, device) -> tuple:
+    """(the SDS prior, the reference's guidance from the same weights as
+    the program's, cast as the configuration states)."""
+    p, kind = prior(cfg), inputs.prior_kind(cfg)
+    spec = inputs.prior_spec(cell, kind)
+    return p, p.reference(inputs.prior_state(kind, spec, seed, device), spec,
+                          device)
 
 
 class Run:
@@ -390,6 +390,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
         metrics = {k: cell_metrics(cell["name"], k)
                    for k in ("end_to_end", "per_layer")}
     cuda = torch.device(device).type == "cuda"
+    prior(cfg)                  # before set-up: the prior's file is there
     set_tf32(False)
     rec = run_program(cell, cfg, seed, seconds, trace, device, t0)
     log("captures:", json.dumps(rec["captures"]))

@@ -1,19 +1,24 @@
 """What a run hands to the program and to the reference alike, made from the
 run's seed: the config of the cell, the synthetic scene, the field's
-initial parameters and the Zero123 weights. Nothing is read from the
-program or downloaded; the weights are made on the device in a few large
-draws."""
+initial parameters and the weights of the configuration's SDS prior, whose
+file (PRIORS/<kind>.py) is found by the kind's name. Nothing is read from
+the program or downloaded; the weights are made on the device in a few
+large draws."""
 from __future__ import annotations
 
 import copy
+import importlib.util
 import json
 import os
+import re
 
 import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SECTIONS = ("data", "exp", "render", "train", "model", "guidance", "tpu")
+# the SDS priors' files, one a kind
+PRIORS = os.path.join(HERE, "guidance")
 
 
 def load_cell(name: str) -> dict:
@@ -67,86 +72,63 @@ def field_state(cfg: dict, num_frames: int, bound: float, seed: int,
     return {k: v.detach() for k, v in field.state_dict().items()}
 
 
-def zero123_spec(cell: dict):
-    """The Zero123 widths of the cell's configuration (or the cell's own
-    "zero123_spec", as a test's tiny cell gives)."""
-    from .reference.guidance.zero123 import Zero123Spec
-    s = dict(cell.get("zero123_spec")
-             or load_config_file(cell["config"])["zero123_spec"])
-    for k in ("unet_mult", "vae_mult"):
-        s[k] = tuple(s[k])
-    return Zero123Spec(**s)
+def prior_kind(cfg: dict) -> str:
+    """The kind of the configuration's SDS prior: its guidance.model[0]."""
+    kind = cfg["guidance"]["model"][0]
+    if not re.fullmatch(r"[A-Za-z0-9_]+", kind):
+        raise ValueError(f"guidance.model: {kind!r} is no prior's name")
+    return kind
 
 
-def _init_plan(g) -> dict:
-    """name -> ("normal", std) | ("const", value) for every weight of the
-    guidance module `g` (on the meta device): lecun-normal kernels, zero
-    biases, unit norms, N(0, 0.02) CLIP embeddings and cc_projection, and
-    zero weights where ldm starts at zero (each ResBlock's last conv, each
-    SpatialTransformer's proj_out, the UNet's output conv)."""
-    from torch import nn
+def load_prior(kind: str):
+    """PRIORS/<kind>.py, the SDS prior of that kind, loaded by path as
+    harness.load_reader loads a metric's reader. A prior's file gives:
 
-    from .reference.guidance import clip_vit
-    from .reference.guidance.layers import ResBlock, SpatialTransformer
-    zero = {id(m.out_layers[3]) for m in g.modules()
-            if isinstance(m, ResBlock)}
-    zero |= {id(m.proj_out) for m in g.modules()
-             if isinstance(m, SpatialTransformer)}
-    zero.add(id(g.unet.out[2]))
-    plan = {}
-    names = {id(p): n for n, p in g.named_parameters()}
-    for m in g.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            plan[names[id(m.weight)]] = (("const", 0.0) if id(m) in zero
-                                         else ("normal", fan_in ** -0.5))
-            if m.bias is not None:
-                plan[names[id(m.bias)]] = ("const", 0.0)
-        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
-            plan[names[id(m.weight)]] = ("const", 1.0)
-            plan[names[id(m.bias)]] = ("const", 0.0)
-        elif isinstance(m, clip_vit._Attention):
-            plan[names[id(m.in_proj_weight)]] = (
-                "normal", m.in_proj_weight.shape[1] ** -0.5)
-            plan[names[id(m.in_proj_bias)]] = ("const", 0.0)
-    for p in (g.clip.class_embedding, g.clip.positional_embedding,
-              g.clip.proj, g.cc_projection.weight):
-        plan[names[id(p)]] = ("normal", 0.02)
-    missing = set(names.values()) - set(plan)
-    if missing:
-        raise AssertionError(f"no init for {sorted(missing)[:4]}")
-    return plan
+    - spec(fields), TINY_SPEC: its widths, a dataclass whose fields the
+      configuration's "<kind>_spec" lists, and those of the CPU tests;
+    - state(spec, seed, device): its weights by name, from a generator of
+      `seed` (prior_state hands it the run's sub_seed(seed, 2));
+    - program(state, fields, device): the port's guidance from them;
+    - reference(state, spec, device), release(g): the reference's guidance,
+      cast as the configuration states, and what the reference frees once
+      its set-up has made the conditioning;
+    - conditioning(ref), views(ref, epoch), loss(ref, batch, out, epoch):
+      the reference's parts of the SDS step (reference/step.py's
+      ReferenceTrainer `ref` renders `batch`, the views' rays, into `out`),
+      which take the port's draws in the port's order.
+    """
+    path = os.path.join(PRIORS, f"{kind}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"guidance.model names the prior {kind!r}, "
+                                f"and {path} is missing")
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark.guidance.{kind}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def zero123_state(spec, seed: int, device) -> dict:
-    """An ldm-named state dict of the Zero123 guidance (UNet, VAE, CLIP image
-    tower, cc_projection) in float32 on `device`: each of the four parts'
-    normal weights are views of one draw of a generator of the seed, scaled
-    per tensor; cc_projection starts near the identity on its CLIP part."""
-    from .reference.guidance.zero123 import Zero123Guidance
-    with torch.device("meta"):
-        g = Zero123Guidance(spec)
-    plan = _init_plan(g)
-    shapes = {n: p.shape for n, p in g.named_parameters()}
-    gen = torch.Generator(device=device)
-    gen.manual_seed(sub_seed(seed, 2))
-    out = {}
-    for prefix in ("model.", "first_stage_model.", "cond_stage_model.",
-                   "cc_projection."):
-        part = [n for n in shapes if n.startswith(prefix)]
-        normal = [n for n in part if plan[n][0] == "normal"]
-        flat = torch.randn(sum(shapes[n].numel() for n in normal),
-                           generator=gen, device=device)
-        off = 0
-        for n in part:
-            kind, v = plan[n]
-            if kind == "normal":
-                k = shapes[n].numel()
-                out[n] = flat[off:off + k].view(shapes[n]).mul_(v)
-                off += k
-            else:
-                out[n] = torch.full(shapes[n], v, device=device)
-    cd = spec.context_dim
-    w = out["cc_projection.weight"]
-    w[:, :cd] += torch.eye(cd, device=device)
-    return out
+def prior_spec(cell: dict, kind: str):
+    """The prior's widths: the cell's own "<kind>_spec", as a test's tiny
+    cell gives, or its configuration's."""
+    fields = (cell.get(f"{kind}_spec")
+              or load_config_file(cell["config"])[f"{kind}_spec"])
+    return load_prior(kind).spec(fields)
+
+
+def prior_state(kind: str, spec, seed: int, device) -> dict:
+    """The prior's weights by name on `device`, from the run's seed."""
+    return load_prior(kind).state(spec, sub_seed(seed, 2), device)
+
+
+def __getattr__(name: str):
+    """inputs.<kind>_spec(cell) and inputs.<kind>_state(spec, seed, device),
+    prior_spec and prior_state under the kind's name, for callers that name
+    the kind (tests/test_torch_exact_config.py)."""
+    kind, _, what = name.rpartition("_")
+    if kind and what == "spec":
+        return lambda cell: prior_spec(cell, kind)
+    if kind and what == "state":
+        return lambda spec, seed, device: prior_state(kind, spec, seed,
+                                                      device)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

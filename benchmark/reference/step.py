@@ -2,14 +2,17 @@
 body that its CUDA graph replays) and its SDS virtual step, eager, in
 float32 with TF32 off, on the kernels' plain twins (the port's
 train/trainer.py, frozen: _refresh_occ, _real_update, _real_body,
-virtual_step, precompute_embeddings). It builds its own state from what the
-benchmark hands it (the config, the scene, the field's parameters by name,
-the Zero123 weights by ldm name and the seed) and works out again what the
-port derives in set-up: the occupancy grid, the CLIP embeddings and the
-reference latents.
+virtual_step). It builds its own state from what the benchmark hands it
+(the config, the scene, the field's parameters by name, the SDS prior's
+guidance from its weights and the seed) and works out again what the port
+derives in set-up: the occupancy grid and the prior's conditioning. The
+SDS step's parts that belong to the prior (its conditioning, the views a
+step renders and the loss on their render) are the prior's
+(inputs.load_prior); the draws, the render, the regularisers and the
+update every prior shares are here.
 
     ref = ReferenceTrainer(cfg, scene, field_state, seed, epoch, step,
-                           device, guidance=g)
+                           device, guidance=g, prior=p)
     for _ in range(3):
         ref.step(kind)        # "real" or "virtual", in the epoch loop's order
 """
@@ -59,10 +62,12 @@ def field_spec(config: dict, num_frames: int, bound: float) -> FieldSpec:
 
 class ReferenceTrainer:
     """One scene's optimisation state and its two kinds of step. guidance: the
-    reference's Zero123Guidance (guidance/zero123.py) or None."""
+    reference's guidance of the SDS prior `prior` (a prior's file, as
+    inputs.load_prior gives it), or None."""
 
     def __init__(self, config: dict, scene: dict, field_state: dict,
-                 seed: int, epoch: int, step: int, device, guidance=None):
+                 seed: int, epoch: int, step: int, device, guidance=None,
+                 prior=None):
         if config["train"]["optim"] != "adam":
             raise ValueError("the reference steps Adam only")
         self.config = config
@@ -89,11 +94,11 @@ class ReferenceTrainer:
                                             self.device)
         self.epoch, self.global_step = epoch, step
         self._set_levels(self._active_levels())
-        self.guidance = guidance
+        self.guidance, self.prior = guidance, prior
         self.embeddings = None
         self.sampler = None
         if guidance is not None:
-            self.embeddings = self.precompute_embeddings(guidance)
+            self.embeddings = prior.conditioning(self)
             d = config["data"]
             scale = (d["novel_view_scale_final"] if epoch > 800
                      else d["novel_view_scale"])
@@ -236,56 +241,20 @@ class ReferenceTrainer:
 
     # ---- the SDS virtual step ----
 
-    @torch.no_grad()
-    def precompute_embeddings(self, guidance) -> dict:
-        import cv2
-
-        from .guidance import zero123 as z123
-        ds = self.dataset
-        kf = np.arange(0, ds.num_frames, self.config["train"]["kf_every"])
-        if (ds.num_frames - 1) not in kf:
-            kf = np.concatenate([kf, [ds.num_frames - 1]])
-        gsz = guidance.spec.image_size
-        imgs = []
-        for i in kf:
-            m = (ds.masks[i] > 0.5).astype(np.float32)
-            masked = ds.images[i] * m[..., None] + (1.0 - m[..., None])
-            imgs.append(cv2.resize(masked, (gsz, gsz),
-                                   interpolation=cv2.INTER_AREA
-                                   ).astype(np.float32))
-        imgs = torch.as_tensor(np.stack(imgs).transpose(0, 3, 1, 2).copy(),
-                               device=self.device)
-        c_crossattn = torch.cat([z123.clip_image_embed(guidance, imgs[k:k + 1])
-                                 for k in range(len(kf))], 0)
-        c_concat = torch.cat([z123.vae_encode_mode(guidance, imgs[k:k + 1])
-                              for k in range(len(kf))], 0)
-        nearest = np.argmin(np.abs(kf[None, :]
-                                   - np.arange(ds.num_frames)[:, None]), 1)
-
-        def dev(a, dtype=torch.float32):
-            return torch.as_tensor(np.asarray(a), dtype=dtype,
-                                   device=self.device)
-        return {
-            "kf": dev(kf, torch.long), "nearest_kf": dev(nearest, torch.long),
-            "c_crossattn": c_crossattn, "c_concat": c_concat,
-            "ref_polars": dev(np.asarray(ds.theta, np.float32)[kf]),
-            "ref_azimuths": dev(np.asarray(ds.phi, np.float32)[kf]),
-            "ref_radii": dev(np.asarray(ds.radius, np.float32)[kf]),
-        }
-
-    def _virtual_loss(self, epoch, max_level):
-        from .guidance import zero123 as z123
-        from .guidance.resize import resize
-        cfg, draws, sampler = self.config, self.draws, self.sampler
-        tr, gd = cfg["train"], cfg["guidance"]
-        g, emb = self.guidance, self.embeddings
+    def sample_view(self, epoch) -> dict:
+        """One novel view's rays and pose, within the epoch's ranges under
+        progressive_view."""
         if self.curr.progressive_view:
             th, ph = self.curr.view_ranges(epoch)
-            batch = sampler.sample(draws=draws, theta_range=th, phi_range=ph)
-        else:
-            batch = sampler.sample(draws=draws)
-        H, W = sampler.H, sampler.W
-        N = H * W
+            return self.sampler.sample(draws=self.draws, theta_range=th,
+                                       phi_range=ph)
+        return self.sampler.sample(draws=self.draws)
+
+    def _virtual_loss(self, epoch, max_level):
+        cfg, draws = self.config, self.draws
+        tr = cfg["train"]
+        batch = self.prior.views(self, epoch)
+        N = batch["rays_o"].shape[0]
         albedo_phase = (np.float32(epoch) / np.float32(self.curr.n_epochs)
                         <= np.float32(self.curr.albedo_iter_ratio))
         u = draws.uniform("shade", ())
@@ -312,40 +281,12 @@ class ReferenceTrainer:
             bg_color=bg_color, ambient_ratio=ambient, shading_id=shading_id,
             real_view=False, optimize_pose=False, max_level=max_level,
             train=True)
-        pred = torch.clamp(out["image"].reshape(1, H, W, 3), 0.0, 1.0)
-        gsz = g.spec.image_size
-        pred256 = resize(pred.permute(0, 3, 1, 2), (gsz, gsz), "bilinear")
-        f = batch["frame_idx"].reshape(1).long()
-        slot_near = emb["nearest_kf"].index_select(0, f)
-        use_cur = draws.uniform("kf_pick", ()) > 0.5
-        slot = torch.where(use_cur, slot_near, 0)
-
-        def ref(name, s):
-            return emb[name].index_select(0, s)[0]
-
-        def dev(x):
-            return torch.as_tensor(x, device=self.device).reshape(-1)[0]
-        polar_t = dev(batch["polar"]) + ref("ref_polars", slot_near)
-        azim_t = dev(batch["azimuth"]) + ref("ref_azimuths", slot_near)
-        rad_t = dev(batch["radius"]) + ref("ref_radii", slot_near)
-        polar_k = polar_t - ref("ref_polars", slot)
-        azim_k = azim_t - ref("ref_azimuths", slot)
-        azim_k = torch.where(azim_k > 180.0, azim_k - 360.0, azim_k)
-        rad_k = rad_t - ref("ref_radii", slot)
-        gs = z123.angle_grad_scale(
-            polar_k, azim_k, rad_k, ref("ref_polars", slot),
-            ref("ref_azimuths", slot), ref("ref_radii", slot),
-            gd["zero123_grad_weight"])
-        min_step, max_step = self.curr.sds_steps(epoch)
-        loss_sds, _ = z123.sds_loss(
-            g, draws, pred256, emb["c_crossattn"].index_select(0, slot),
-            emb["c_concat"].index_select(0, slot), polar_k, azim_k, rad_k,
-            min_step, max_step, guidance_scale=gd["zero123_guidance_scale"],
-            grad_scale=gs, remat=False)
+        loss_sds = self.prior.loss(self, batch, out, epoch)
         ori_w, rgb_w, beta_w = self.curr.loss_weights(epoch)
         loss = loss_sds + self._reg_loss(out, ori_w, beta_w)
         if tr["normal_smooth_2d"] > 0 and "normal_image" in out:
-            ni = out["normal_image"].reshape(H, W, 3)
+            ni = out["normal_image"].reshape(self.sampler.H,
+                                             self.sampler.W, 3)
             loss = loss + tr["normal_smooth_2d"] * (
                 ((ni[1:] - ni[:-1]) ** 2).mean()
                 + ((ni[:, 1:] - ni[:, :-1]) ** 2).mean())

@@ -9,8 +9,9 @@ end-to-end metrics, or with --trace 1 its per-layer ones), device and, with
 --trace 1, breakdown; last in it, "compared": each number that decides
 `correct` beside its limit, which standard error's last lines repeat. Exits
 with another code than 0 and prints no result without a CUDA card, without
-the port beside the benchmark, or when the process holds a module of the JAX
-stack or of the JAX package after the window.
+the port beside the benchmark, without the file of the configuration's SDS
+prior (benchmark/guidance/<kind>.py), or when the process holds a module of
+the JAX stack or of the JAX package after the window.
 """
 import time
 
@@ -57,6 +58,11 @@ def main(argv=None) -> int:
     if torch.cuda.device_count() < int(cell["chips"]):
         print(f"run.py: {cell['chips']} cards asked for, "
               f"{torch.cuda.device_count()} here", file=sys.stderr)
+        return 2
+    try:
+        harness.prior(inputs.run_config(cell))
+    except (FileNotFoundError, ValueError) as e:
+        print(f"run.py: {e}", file=sys.stderr)
         return 2
     harness.log("card:", harness.card_line("cuda"))
     result = harness.run_cell(cell, args.seed, args.seconds,

@@ -1,7 +1,7 @@
 """A tiny form of a cell for the CPU: the cell's config cut to 4 frames at
-40x40, 64 rays, a 16^3 occupancy grid and one iteration an epoch, and the
-"<random-tiny>" Zero123 widths; every option and budget as the cell has
-them."""
+40x40, 64 rays, a 16^3 occupancy grid and one iteration an epoch, and its
+SDS prior's "<random-tiny>" widths (the prior's TINY_SPEC); every option
+and budget as the cell has them."""
 import copy
 import dataclasses
 
@@ -20,10 +20,10 @@ def tiny(name: str):
     cfg["tpu"].update(occ_resolution=16, march_steps=64,
                       max_samples_per_ray=16)
     if cfg["guidance"]["model"]:
-        from benchmark.reference.guidance.zero123 import TINY_SPEC
-        spec = dataclasses.asdict(TINY_SPEC)
+        kind = inputs.prior_kind(cfg)
+        spec = dataclasses.asdict(inputs.load_prior(kind).TINY_SPEC)
         spec["compute_dtype"] = "bfloat16"
-        cell["zero123_spec"] = spec
+        cell[f"{kind}_spec"] = spec
     return cell, cfg
 
 

@@ -90,6 +90,12 @@ def test_config_file(config):
     assert whole["tpu"]["grad_payload"] == "bfloat16"
     assert whole["model"].get("grid_num_levels", 16) == 16
     assert whole["train"]["real_ray_num"] == 2048
+    # the SDS prior's file, found by its kind's name, takes the widths that
+    # the configuration gives under "<kind>_spec"
+    from benchmark import inputs
+    kind = inputs.prior_kind(whole)
+    assert os.path.isfile(os.path.join(HERE, "guidance", f"{kind}.py"))
+    assert inputs.load_prior(kind).spec(whole[f"{kind}_spec"])
 
 
 @pytest.mark.parametrize("metric", [x["name"] for x in manifest()["per_layer"]])

@@ -26,7 +26,8 @@ def test_reference_loads_neither_jax_nor_the_program():
     tops = _modules(
         "import benchmark.reference.step, benchmark.reference.guidance."
         "zero123, benchmark.inputs, benchmark.compare\n"
-        "from benchmark.rooflines import level_histogram")
+        "from benchmark.rooflines import level_histogram\n"
+        "benchmark.inputs.load_prior('zero123')")
     assert not tops & FORBIDDEN
     assert "morpheus_tpu_torch" not in tops
 
